@@ -28,7 +28,7 @@ Semantics (shared by both versions):
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -110,21 +110,36 @@ def fused_choice_plain(init_req, avail, used_now, inv_alloc, node_static,
 
 
 def _check(name, t, dtype, shape, device):
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
+    if (t.dtype != dtype or t.shape != shape or t.device != device
+            or not t.is_contiguous()):
+        err = TypeError if t.dtype != dtype else ValueError
+        raise err(f"{name}: {t.dtype} {tuple(t.shape)} on {t.device} "
+                  f"(contiguous: {t.is_contiguous()}), expected {dtype} "
+                  f"{tuple(shape)} on {device}, contiguous")
+
+
+_lib = None
+_scratch_bytes: Dict[tuple, int] = {}
+
+
+def _kernel():
+    """The kernel's library, its ctypes signatures set once at first load."""
+    global _lib
+    if _lib is None:
+        from ._build import load
+        lib = load("fused_choice")
+        lib.fused_choice_launch.argtypes = (
+            [ctypes.c_void_p] * 13 + [ctypes.c_longlong]
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        lib.fused_choice_launch.restype = ctypes.c_int
+        lib.fused_choice_scratch_bytes.argtypes = [ctypes.c_int] * 4
+        lib.fused_choice_scratch_bytes.restype = ctypes.c_longlong
+        _lib = lib
+    return _lib
 
 
 def _launch(init_req, avail, used_now, inv_alloc, node_static, eligible,
             pods_ok, sig_feas_i8, pars, families):
-    from ._build import load
-
     T, R = init_req.shape
     N = avail.shape[0]
     dev = init_req.device
@@ -148,22 +163,27 @@ def _launch(init_req, avail, used_now, inv_alloc, node_static, eligible,
         raise ValueError(f"fused_choice: unknown score families {unknown}")
     fam = sum(_FAMILY_BITS[f] for f in set(families))
 
-    lib = load("fused_choice")
-    fn = lib.fused_choice_launch
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib = _kernel()
     best_s = torch.empty((T,), dtype=f32, device=dev)
     best_i = torch.empty((T,), dtype=torch.int32, device=dev)
     node_max = torch.empty((N,), dtype=f32, device=dev)
     with torch.cuda.device(dev):
+        key = (dev.index, T, N, R, fam)
+        nbytes = _scratch_bytes.get(key)
+        if nbytes is None:
+            nbytes = lib.fused_choice_scratch_bytes(T, N, R, fam)
+            if nbytes <= 0:
+                raise RuntimeError("fused_choice: no launch plan for "
+                                   f"T={T} N={N} R={R}")
+            _scratch_bytes[key] = nbytes
+        scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(init_req.data_ptr(), eligible.data_ptr(),
-                 sig_feas_i8.data_ptr(), avail.data_ptr(),
-                 used_now.data_ptr(), inv_alloc.data_ptr(),
-                 node_static.data_ptr(), pods_ok.data_ptr(), pars.data_ptr(),
-                 best_s.data_ptr(), best_i.data_ptr(), node_max.data_ptr(),
-                 T, N, R, fam, stream)
+        err = lib.fused_choice_launch(
+            init_req.data_ptr(), eligible.data_ptr(), sig_feas_i8.data_ptr(),
+            avail.data_ptr(), used_now.data_ptr(), inv_alloc.data_ptr(),
+            node_static.data_ptr(), pods_ok.data_ptr(), pars.data_ptr(),
+            best_s.data_ptr(), best_i.data_ptr(), node_max.data_ptr(),
+            scratch.data_ptr(), nbytes, T, N, R, fam, stream)
     if err != 0:
         raise RuntimeError(f"fused_choice kernel launch failed: CUDA error "
                            f"{err}")
@@ -195,6 +215,61 @@ def fused_choice(init_req, avail, used_now, inv_alloc, node_static,
 
 #: kernel launches made through the wrapper (not the plain version's calls)
 fused_choice.launches = 0
+
+
+#: H100 SXM data sheet: HBM3 bandwidth
+H100_BYTES_PER_S = 3.35e12
+#: The data sheet's 67 TFLOP/s fp32 (outside the tensor cores) counts a fused
+#: multiply-add as two operations: one fp32 instruction per lane per clock.
+#: The kernel is built with --fmad=false, so every add, multiply, compare,
+#: min/max and select is an instruction of its own, run at half that rate.
+H100_FP32_INSTR_PER_S = 67e12 / 2
+
+
+def fused_choice_cost(T: int, N: int, R: int, families,
+                      eligible_rows: Optional[int] = None) -> Tuple[int, int]:
+    """(bytes, fp32 instructions) one call needs: each input read once, each
+    output written once. Only the ``eligible_rows`` eligible tasks (all T
+    when None) have pairs to score: pair work and mask bytes are counted
+    over them. Each term is charged once per value it depends on, and an
+    add into a zero (the plain version's ``0 +`` first terms) is no work:
+    - per node: the fit threshold av + (thr + tol*|av|) (abs, mul, 2 adds
+      per dim); binpack's w*inv and sum of (used*w)*inv (4 per dim);
+    - per task: the scalar-dim request <= 10 test (1 per dim past the 2nd);
+    - per (eligible task, node) pair: the fit test, one compare per dim
+      against the node's threshold (``<=`` the next float below it, an
+      exact rewrite of the plain pair of compares); the node_static add
+      (none with no score family), the mask select, the row max and the
+      column max; binpack's R products, R - 1 sums, the node term's add and
+      the weight and scale multiplies (2R + 2); kube's fill fractions,
+      clips, least / most / balanced and weighted sum (29), and its add
+      into the binpack score where both families score (30).
+    Boolean and int8 mask logic is not fp32 work and is not counted."""
+    E = T if eligible_rows is None else eligible_rows
+    nbytes = (E * N                      # int8 signature mask, eligible rows
+              + 4 * (T * R + T)          # init_req, eligible
+              + 4 * (3 * N * R + 2 * N)  # avail, used, inv_alloc; static, pods_ok
+              + 4 * (5 + R)              # pars
+              + 4 * (2 * T + N))         # best_s, best_i, node_max
+    binpack, kube = "binpack" in families, "kube" in families
+    per_pair = R + 3 + (binpack or kube)
+    per_node = 4 * R
+    per_task = max(R - 2, 0)
+    if binpack:
+        per_pair += 2 * R + 2
+        per_node += 4 * R
+    if kube:
+        per_pair += 30 if binpack else 29
+    return nbytes, E * N * per_pair + N * per_node + T * per_task
+
+
+def bound_ms(nbytes: int, ops: int) -> Tuple[float, str]:
+    """The least time an H100 could take for (bytes, fp32 instructions),
+    and which of the two sets it."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_FP32_INSTR_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
 
 
 def pack_pars(params: Dict[str, torch.Tensor], R: int) -> torch.Tensor:
