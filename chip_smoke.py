@@ -36,7 +36,31 @@ checkout, then, printing one JSON line per phase:
 7. profile - one fused headline session under torch.profiler: device time
              by kernel, the fused choice's kernels summed, and the device's
              idle share;
-8. the kernels line, then the result line.
+8. cycle   - the port's Scheduler.run_once on the card at bench.py
+             full_cycle()'s scale (2000 nodes of 32 cpu / 128Gi, 3 queues
+             1:2:3, default conf): a warm-up burst of 1000 gangs x 10 pods,
+             a measured burst on a fresh identical cluster sharing the warm
+             arena, 20 warm-up waves, then 12 timed steady cycles of one
+             10-gang wave each. One line per regime (cycle ms, the
+             last_cycle_timing breakdown, flatten/ordering modes, arena
+             bytes and chunks, kernel launches, binds). Checks: every pod
+             of the burst and of each wave bound in its cycle, gangs
+             all-or-nothing, no node past its allocatable, no host fallback
+             or action error, breaker closed, the kernel launched every
+             cycle, no full re-ship, cold flatten or ordering fallback in a
+             steady cycle, the resident arena equal to its host mirror
+             after the run. Every kernel launch of the warm-up burst and of
+             the last warm-up wave is held bit for bit against the plain
+             version on its own inputs (cycle_audit). Then: the async
+             pinned readback of one steady cycle and of a producer still
+             running on the device against a blocking copy
+             (cycle_readback), one steady cycle under torch.profiler
+             (cycle_profile), three cycles on the event-sourced flatten (a
+             gang that fits no node stays pending while bound gangs
+             finish: regime "event"), and a small churned cluster through
+             the Scheduler on the card and on the host, binds identical
+             (cycle_small);
+9. the kernels line, then the result line.
 
 `--phases kernel,edges` runs a subset (device and build always run) and
 then prints neither of the last two lines.
@@ -114,26 +138,34 @@ def score_params(arr, **weights):
 
 # -- timing ----------------------------------------------------------------
 
-def device_ms(fn, calls: int = 50, warmup: int = 3) -> tuple:
+def device_ms(fn, calls: int = 50, warmup: int = 3,
+              attempts: int = 3) -> tuple:
     """Device time per call of fn(): the device-side events (kernels,
     memcpy, memset) of `calls` back-to-back calls under torch.profiler,
-    summed and divided by `calls`. Returns (ms, {kernel name: us})."""
+    summed and divided by `calls`. Returns (ms, {kernel name: us}).
+
+    A profiler session now and then records no device events at all (seen
+    once in some 70 back-to-back sessions on the H100); such a reading is
+    taken again, up to ``attempts`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    by_name = {e.key: e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0}
-    if not by_name:
-        raise AssertionError("the profiler saw no device time")
-    return sum(by_name.values()) / 1e3 / calls, by_name
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {e.key: e.self_device_time_total
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0}
+        if by_name:
+            return sum(by_name.values()) / 1e3 / calls, by_name
+    raise AssertionError(f"the profiler saw no device time in {attempts} "
+                         f"sessions")
 
 
 def call_ms(fn, calls: int = 50, warmup: int = 3) -> float:
@@ -360,8 +392,10 @@ def check_choice(args, fam, what: str) -> dict:
 #: (T, N, R, variant), checked for every score-family set here and by the
 #: card tests: shapes off every tile (the kernel's node tile is 128 or 64
 #: nodes, its row ranges T / G), later-round row masks, ties across node
-#: tiles, the fit test's boundaries, zero scores of either sign
+#: tiles, the fit test's boundaries, zero scores of either sign, and the
+#: steady scheduling cycle's shape (one 10-gang wave: T=112 over N=2048)
 EDGE_CASES = (
+    (112, 2048, 2, "random"), (112, 2048, 2, "none_eligible"),
     (1, 1, 2, "random"), (1, 2048, 3, "random"), (1000, 1, 2, "random"),
     (37, 45, 3, "random"), (40, 128, 2, "random"), (333, 1001, 3, "random"),
     (500, 1001, 3, "random"), (600, 700, 5, "random"),
@@ -639,16 +673,21 @@ def phase_profile(dev):
     # the same session's unprofiled wall time
     plain_wall = statistics.median(
         timed_session(arr, params, kw, "auto", dev)[0] for _ in range(5))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall_ms, res, _, _ = timed_session(arr, params, kw, "auto", dev)
     from torch.autograd import DeviceType
-    # device-side events only (kernels, memcpy, memset): the aten ops that
-    # launched them carry the same time and would count it twice
-    rows = sorted(((e.self_device_time_total, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
+    for _ in range(3):      # a session with no device events is re-taken
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall_ms, res, _, _ = timed_session(arr, params, kw, "auto", dev)
+        # device-side events only (kernels, memcpy, memset): the aten ops
+        # that launched them carry the same time and would count it twice
+        rows = sorted(((e.self_device_time_total, e.count, e.key)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA
+                       and e.self_device_time_total > 0), reverse=True)
+        if rows:
+            break
+    else:
+        raise AssertionError("the profiler saw no device time")
     device_ms = sum(r[0] for r in rows) / 1e3
     launches = sum(e.count for e in prof.key_averages()
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
@@ -669,7 +708,471 @@ def phase_profile(dev):
                             for us, c, k in rows[:12]]})
 
 
-PHASES = ("kernel", "edges", "small", "solve", "profile")
+# -- the scheduling cycle (bench.py full_cycle()'s scale) -------------------
+
+CYCLE = dict(n_nodes=2000, n_jobs=1000, tasks_per_job=10, wave_jobs=10,
+             warm_waves=20, steady_cycles=12)
+#: timing keys of Scheduler.last_cycle_timing each cycle line reports
+CYCLE_KEYS = ("open_ms", "order_ms", "flatten_ms", "pack_ms",
+              "delta_plan_ms", "dispatch_ms", "overlap_ms", "readback_ms",
+              "solve_ms", "replay_ms", "enqueue_ms", "allocate_ms",
+              "backfill_ms", "close_ms", "total_ms")
+
+
+class StoreCluster:
+    """The port's Scheduler over an in-memory store: ``n_nodes`` nodes of
+    32 cpu / 128Gi / 110 pods, 3 queues weighted 1:2:3, gangs of
+    ``tasks_per_job`` pods (cpu 1-3, memory 1-4Gi, minMember = size) — the
+    cluster of bench.py's full_cycle(), built from the port's own models.
+    FakeBinder records the binds."""
+
+    def __init__(self, dev, n_nodes: int, n_jobs: int = 0,
+                 tasks_per_job: int = 10, cpu: str = "32", mem: str = "128Gi",
+                 shared_arena=None):
+        from volcano_tpu_torch.cache import (
+            FakeBinder, FakeEvictor, SchedulerCache,
+        )
+        from volcano_tpu_torch.client import ClusterStore
+        from volcano_tpu_torch.models import Node, Queue, QueueSpec
+        from volcano_tpu_torch.scheduler import Scheduler
+
+        self.tpj = tasks_per_job
+        self.store = ClusterStore()
+        self.cache = SchedulerCache(self.store, device=dev)
+        if shared_arena is not None:
+            # a long-running scheduler's arena outlives any one cluster
+            # state: the measured burst starts with it warm
+            self.cache.device_cache = shared_arena
+        self.cache.binder = FakeBinder()
+        self.cache.evictor = FakeEvictor()
+        self.cache.run()
+        for i in range(3):
+            self.store.apply("queues", Queue(name=f"q{i}",
+                                             spec=QueueSpec(weight=i + 1)))
+        self.alloc = {"cpu": float(cpu), "memory": _gib(mem), "pods": 110}
+        for i in range(n_nodes):
+            rl = {"cpu": cpu, "memory": mem, "pods": "110"}
+            self.store.create("nodes", Node(name=f"n{i}", allocatable=rl,
+                                            capacity=dict(rl)))
+        self.k = 0
+        self.gangs: dict = {}    # "bench/j<k>-<i>" pod keys per gang
+        self.req: dict = {}      # pod key -> (cpu, memory bytes)
+        self.submit(n_jobs)
+        self.sched = Scheduler(self.cache)
+
+    def submit(self, n_jobs: int, cpu_per_pod: int = 0) -> list:
+        """``n_jobs`` new gangs; ``cpu_per_pod`` overrides the cpu 1-3
+        request of their pods."""
+        from volcano_tpu_torch.api.types import POD_GROUP_ANNOTATION
+        from volcano_tpu_torch.models import (
+            Pod, PodGroup, PodGroupPhase, PodGroupSpec, PodGroupStatus,
+        )
+        new = []
+        for _ in range(n_jobs):
+            k = self.k
+            self.k += 1
+            self.store.create("podgroups", PodGroup(
+                name=f"j{k}", namespace="bench",
+                spec=PodGroupSpec(min_member=self.tpj, queue=f"q{k % 3}"),
+                status=PodGroupStatus(phase=PodGroupPhase.PENDING)))
+            keys = []
+            for i in range(self.tpj):
+                cpu, mem = cpu_per_pod or 1 + k % 3, 1 + k % 4
+                self.store.create("pods", Pod(
+                    name=f"j{k}-{i}", namespace="bench", phase="Pending",
+                    annotations={POD_GROUP_ANNOTATION: f"j{k}"},
+                    containers=[{"requests": {"cpu": str(cpu),
+                                              "memory": f"{mem}Gi"}}]))
+                key = f"bench/j{k}-{i}"
+                keys.append(key)
+                self.req[key] = (float(cpu), mem * float(2 ** 30))
+            self.gangs[f"j{k}"] = keys
+            new.append(f"j{k}")
+        return new
+
+    def complete(self, gang: str) -> None:
+        """A bound gang finishes: its pods are deleted."""
+        for key in self.gangs.pop(gang):
+            ns, name = key.split("/")
+            self.store.delete("pods", name, ns)
+            self.cache.binder.binds.pop(key)
+
+    def run_cycle(self) -> dict:
+        """One Scheduler.run_once with the kernel's count set to 0 just
+        before and read just after; returns the cycle's numbers."""
+        from volcano_tpu_torch.ops import fused_choice as fc
+        binds = self.cache.binder.binds
+        before = len(binds)
+        fc.fused_choice.launches = 0
+        t0 = time.perf_counter()
+        self.sched.run_once()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = fc.fused_choice.launches
+        t = self.sched.last_cycle_timing
+        out = {"cycle_ms": ms, "binds": len(binds) - before,
+               "launches": launches,
+               **{k: t[k] for k in CYCLE_KEYS if k in t}}
+        for k in ("flatten_mode", "flatten_fallback_reason", "order_mode",
+                  "arena_bytes_shipped", "delta_chunks", "delta_fused",
+                  "arena_full_ship", "host_fallback", "breaker_state"):
+            if k in t:
+                out[k] = t[k]
+        return out
+
+    def check(self, what: str, gangs=None) -> None:
+        """Gangs all-or-nothing (``gangs``: every one fully bound), no node
+        bound past its allocatable, no host fallback, breaker closed."""
+        binds = self.cache.binder.binds
+        for g in (gangs or ()):
+            if not all(key in binds for key in self.gangs[g]):
+                raise AssertionError(f"{what}: gang {g} not fully bound")
+        for g, keys in self.gangs.items():
+            n = sum(key in binds for key in keys)
+            if n not in (0, len(keys)):
+                raise AssertionError(f"{what}: gang {g} bound {n} of "
+                                     f"{len(keys)}")
+        load: dict = {}
+        for key, node in binds.items():
+            c, m = self.req[key]
+            lc, lm, lp = load.get(node, (0.0, 0.0, 0))
+            load[node] = (lc + c, lm + m, lp + 1)
+        a = self.alloc
+        over = [n for n, (c, m, p) in load.items()
+                if c > a["cpu"] or m > a["memory"] or p > a["pods"]]
+        if over:
+            raise AssertionError(f"{what}: nodes over allocatable: "
+                                 f"{over[:5]}")
+        t = self.sched.last_cycle_timing
+        if t.get("host_fallback") or t.get("allocate_error"):
+            raise AssertionError(f"{what}: the cycle left the device path "
+                                 f"({t.get('host_fallback')}, "
+                                 f"{t.get('allocate_error')})")
+        if self.cache.breaker.state_code != 0:
+            raise AssertionError(f"{what}: the breaker is not closed")
+
+
+def _gib(q: str) -> float:
+    return float(q[:-2]) * 2 ** 30
+
+
+def cycle_stats(rows, key):
+    vals = [r[key] for r in rows if key in r]
+    return {"p50": statistics.median(vals), "max": max(vals)} if vals \
+        else None
+
+
+def readback_stress(dev) -> dict:
+    """start_readback against a producer the device is still running: a
+    GPU spin, then a fill. A copy that did not wait for the producer's
+    event would read the zeros from before the fill."""
+    from volcano_tpu_torch.ops.pipeline import start_readback
+    y = torch.zeros(1 << 20, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)        # ~0.1 s of device time
+    y.fill_(7)
+    rb = start_readback(y)
+    host, = rb.wait()
+    ok = bool(host.is_pinned()) and bool((host == 7).all())
+    if not ok or not torch.equal(host, y.cpu()):
+        raise AssertionError("async readback differs from the blocking copy")
+    return {"pinned": bool(host.is_pinned()), "elements": host.numel()}
+
+
+class ReadbackProbe:
+    """Wraps ops.pipeline.start_readback for one cycle: keeps each
+    Readback with its device tensors so the pinned result can be held
+    against a blocking .cpu() of the same tensors afterwards."""
+
+    def __enter__(self):
+        import volcano_tpu_torch.ops.pipeline as pl
+        self._pl, self._orig, self.seen = pl, pl.start_readback, []
+
+        def wrapped(*tensors):
+            rb = self._orig(*tensors)
+            self.seen.append((tensors, rb))
+            return rb
+
+        pl.start_readback = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self._pl.start_readback = self._orig
+
+    def check(self) -> int:
+        if len(self.seen) != 1:
+            raise AssertionError(f"{len(self.seen)} readbacks in the cycle")
+        tensors, rb = self.seen[0]
+        for h, t in zip(rb.wait(), tensors):
+            if t.device.type != "cuda" or not h.is_pinned() \
+                    or not torch.equal(h, t.cpu()):
+                raise AssertionError("the cycle's async readback differs "
+                                     "from a blocking copy")
+        return sum(t.numel() for t in tensors)
+
+
+class KernelAudit:
+    """Wraps the solver's fused_choice for the cycles run inside it: the
+    outputs of every launch the cycle makes are held, bit for bit, against
+    fused_choice_plain on the same inputs (the plain call launches no
+    kernel, so the wrapper's count is the cycle's own). Records each
+    launch's (T, N, R, families)."""
+
+    def __enter__(self):
+        from volcano_tpu_torch.ops import fused_choice as fc
+        from volcano_tpu_torch.ops import solver
+        self._solver, self._orig, self.shapes = solver, solver.fused_choice, []
+
+        def audited(*args):
+            before = fc.fused_choice.launches
+            got = self._orig(*args)
+            want = fc.fused_choice_plain(*args)
+            shape = (args[0].shape[0], args[1].shape[0], args[0].shape[1],
+                     tuple(args[-1]))
+            if fc.fused_choice.launches != before + 1:
+                raise AssertionError(f"{shape}: the kernel was not launched")
+            if not all(same_bits(g, w) for g, w in zip(got, want)):
+                raise AssertionError(
+                    f"fused_choice disagrees with its plain version inside "
+                    f"the cycle at (T, N, R, families) = {shape}: best_idx "
+                    f"differs at {int((got[1] != want[1]).sum())} rows")
+            self.shapes.append(shape)
+            return got
+
+        solver.fused_choice = audited
+        return self
+
+    def __exit__(self, *exc):
+        self._solver.fused_choice = self._orig
+
+    def summary(self) -> dict:
+        return {"launches_checked": len(self.shapes),
+                "shapes": sorted({f"T={t} N={n} R={r} {'+'.join(f)}"
+                                  for t, n, r, f in self.shapes})}
+
+
+def event_cycles(c, cycles: int = 3) -> dict:
+    """The event-sourced flatten at full scale. A gang whose pods fit no
+    node (33 cpu each) stays pending; in each following cycle one bound
+    gang finishes. The pending-job layout is then unchanged, so the
+    flatten patches the finished gang's node rows from its events
+    (flatten_mode "event"), the ordering stays on its events, the arena
+    ships only dirty chunks, and the kernel still runs for the pending
+    gang's rows, which bind nowhere."""
+    stuck = c.submit(1, cpu_per_pod=33)
+    first = c.run_cycle()
+    c.check("stuck gang submitted")
+    if first["binds"] or first["launches"] <= 0:
+        raise AssertionError(f"stuck gang cycle: {first}")
+    done = [g for g in c.gangs if g not in stuck][:cycles]
+    rows = []
+    for s, gang in enumerate(done):
+        c.complete(gang)
+        row = c.run_cycle()
+        c.check(f"event cycle {s}")
+        if row.get("flatten_mode") != "event" \
+                or row.get("order_mode") != "event" \
+                or row.get("arena_full_ship") or row["binds"] \
+                or row["launches"] <= 0:
+            raise AssertionError(f"event cycle {s}: {row}")
+        rows.append(row)
+    return {"regime": "event", "cycles": len(rows),
+            "first_cycle_flatten_mode": first.get("flatten_mode"),
+            "cycle_ms": cycle_stats(rows, "cycle_ms"),
+            **{k: cycle_stats(rows, k) for k in CYCLE_KEYS},
+            "flatten_modes": sorted({r["flatten_mode"] for r in rows}),
+            "arena_bytes_shipped": cycle_stats(rows, "arena_bytes_shipped"),
+            "delta_chunks": cycle_stats(rows, "delta_chunks"),
+            "launches_per_cycle": [r["launches"] for r in rows]}
+
+
+def small_cycle_pair(dev, cycles: int = 3, n_nodes: int = 50,
+                     n_jobs: int = 40, seed: int = 5) -> dict:
+    """A small seeded cluster with churn through the port's Scheduler
+    twice, on ``dev`` and on the host (``device="cpu"``, the dense path):
+    the same pods bound to the same nodes and the same jobs ready, cycle
+    by cycle. (The kernel's choices equal the dense path's bit for bit,
+    so this holds the rule of tests/test_solver.py — differences only
+    between score-tied nodes — with no difference at all.)"""
+    rng_state = np.random.default_rng(seed)
+    churn = [sorted(rng_state.choice(n_jobs, n_jobs // 4, replace=False))
+             for _ in range(cycles)]
+    out = []
+    for where in (dev, "cpu"):
+        c = StoreCluster(where, n_nodes, 0, tasks_per_job=4, cpu="8",
+                         mem="32Gi")
+        rng = np.random.default_rng(seed)
+        per_cycle = []
+        for s in range(cycles):
+            if s:
+                # churn: a quarter of the gangs finish, pods deleted
+                for j in churn[s]:
+                    for key in c.gangs.get(f"j{j}", ()):
+                        ns, name = key.split("/")
+                        if c.store.try_get("pods", name, ns) is not None:
+                            c.store.delete("pods", name, ns)
+                        c.cache.binder.binds.pop(key, None)
+            c.submit(int(rng.integers(n_jobs // 3, n_jobs // 2)))
+            row = c.run_cycle()
+            c.check(f"small cycle {s} on {where}")
+            ready = sorted(j.uid for j in c.cache.jobs.values()
+                           if j.pod_group is not None and j.ready())
+            per_cycle.append((sorted(c.cache.binder.binds.items()), ready,
+                              row["launches"]))
+        out.append(per_cycle)
+    card, host = out
+    for s, ((b1, r1, _), (b2, r2, _)) in enumerate(zip(card, host)):
+        if {k for k, _ in b1} != {k for k, _ in b2}:
+            raise AssertionError(f"small cycle {s}: bound pods differ")
+        if r1 != r2:
+            raise AssertionError(f"small cycle {s}: ready jobs differ")
+        if b1 != b2:
+            raise AssertionError(f"small cycle {s}: node choices differ")
+    if any(n <= 0 for _, _, n in card):
+        raise AssertionError("a small card cycle launched no kernel")
+    return {"cycles": cycles, "binds": len(card[-1][0]),
+            "ready_jobs": len(card[-1][1]),
+            "launches_per_cycle": [n for _, _, n in card],
+            "identical_to_host": True}
+
+
+def phase_cycle(dev, scale=None) -> dict:
+    """The port's Scheduler.run_once at full_cycle() scale: a warm-up
+    burst, a measured burst on a fresh identical cluster sharing the warm
+    arena, warm-up waves, then timed steady cycles of one wave each; the
+    async readback checked in one cycle; a steady cycle profiled; a small
+    churned cluster card vs host."""
+    sc = dict(CYCLE, **(scale or {}))
+    n, j, tpj = sc["n_nodes"], sc["n_jobs"], sc["tasks_per_job"]
+    t0 = time.perf_counter()
+    warm = StoreCluster(dev, n, j, tpj)
+    build_s = time.perf_counter() - t0
+    # the warm-up burst and the last warm-up wave run at the shapes of the
+    # measured ones, with every launch checked against the plain version
+    with KernelAudit() as audit_burst:
+        warm_row = warm.run_cycle()
+    warm.check("warm-up burst", gangs=list(warm.gangs))
+    c = StoreCluster(dev, n, j, tpj, shared_arena=warm.cache.device_cache)
+    del warm
+    burst = c.run_cycle()
+    c.check("burst", gangs=list(c.gangs))
+    if burst["binds"] != j * tpj or burst["launches"] <= 0:
+        raise AssertionError(f"burst: {burst['binds']} binds, "
+                             f"{burst['launches']} launches")
+    emit({"phase": "cycle", "regime": "burst", "nodes": n,
+          "pods": j * tpj, "build_s": build_s,
+          "warmup_cycle_ms": warm_row["cycle_ms"], **burst})
+
+    # warm-up waves (the steady shape's first cycle re-ships the arena),
+    # then the timed steady cycles, one wave of wave_jobs gangs each
+    w = sc["wave_jobs"]
+    for i in range(sc["warm_waves"]):
+        gangs = c.submit(w)
+        if i == sc["warm_waves"] - 1:
+            with KernelAudit() as audit_steady:
+                row = c.run_cycle()
+        else:
+            row = c.run_cycle()
+        c.check(f"warm-up wave {i}", gangs=gangs)
+        if row["launches"] <= 0:
+            raise AssertionError(f"warm-up wave {i} launched no kernel")
+    emit({"phase": "cycle_audit",
+          "burst": audit_burst.summary(), "steady": audit_steady.summary(),
+          "equal": True})
+    rows = []
+    for s in range(sc["steady_cycles"]):
+        gangs = c.submit(w)
+        if s == 1:
+            with ReadbackProbe() as probe:
+                row = c.run_cycle()
+            readback_elems = probe.check()
+        else:
+            row = c.run_cycle()
+        c.check(f"steady cycle {s}", gangs=gangs)
+        if row["binds"] != w * tpj or row["launches"] <= 0:
+            raise AssertionError(f"steady cycle {s}: {row['binds']} binds, "
+                                 f"{row['launches']} launches")
+        # a wave of new gangs changes the pending-job layout, which the
+        # event-sourced flatten declines by design (job_layout: the JAX
+        # package does the same on this stream); it re-diffs rows
+        # incrementally, never cold, and the ordering stays on its events
+        if row.get("arena_full_ship") or row.get("flatten_mode") == "cold" \
+                or row.get("order_mode") != "event":
+            raise AssertionError(f"steady cycle {s}: full re-ship, cold "
+                                 f"flatten or ordering fallback ({row})")
+        rows.append(row)
+    # the solves read views of the resident buffers and the scatters
+    # write them in place: after the run they must still equal the
+    # host mirror, chunk for chunk
+    dc = c.cache.device_cache
+    for dev_buf, host in ((dc._dev_f, dc._host_f), (dc._dev_i, dc._host_i)):
+        if not torch.equal(dev_buf.reshape(-1).cpu(), torch.from_numpy(host)):
+            raise AssertionError("the resident arena drifted from its "
+                                 "host mirror")
+    emit({"phase": "cycle", "regime": "steady", "cycles": len(rows),
+          "arena_matches_mirror": True,
+          "wave_pods": w * tpj, "running_pods": len(c.cache.binder.binds),
+          "cycle_ms": cycle_stats(rows, "cycle_ms"),
+          **{k: cycle_stats(rows, k) for k in CYCLE_KEYS},
+          "flatten_modes": sorted({r.get("flatten_mode") for r in rows}),
+          "flatten_fallback_reasons": sorted(
+              {str(r.get("flatten_fallback_reason")) for r in rows}),
+          "order_modes": sorted({r.get("order_mode") for r in rows}),
+          "arena_bytes_shipped": cycle_stats(rows, "arena_bytes_shipped"),
+          "delta_chunks": cycle_stats(rows, "delta_chunks"),
+          "arena_full_ship": sum(r.get("arena_full_ship", 0) for r in rows),
+          "launches_per_cycle": [r["launches"] for r in rows],
+          "binds_per_cycle": [r["binds"] for r in rows],
+          "cycles_ms": [r["cycle_ms"] for r in rows]})
+    emit({"phase": "cycle_readback", "cycle_elements": readback_elems,
+          **readback_stress(dev), "equal_to_blocking_copy": True})
+    prof = profile_cycle(c, w)
+    emit({"phase": "cycle", **event_cycles(c)})
+    emit({"phase": "cycle_small", **small_cycle_pair(dev)})
+    return {"burst": burst, "steady": rows, "profile": prof}
+
+
+def profile_cycle(c, w) -> dict:
+    """One steady cycle under torch.profiler: device time by kernel, the
+    kernel launches, and the device's idle share of the unprofiled steady
+    cycle's wall time (the median of the three cycles before it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    plain = []
+    for _ in range(3):
+        c.submit(w)
+        plain.append(c.run_cycle()["cycle_ms"])
+    for _ in range(3):      # a cycle with no device events: one more wave
+        c.submit(w)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            row = c.run_cycle()
+        c.check("profiled steady cycle")
+        ka = prof.key_averages()
+        rows = sorted(((e.self_device_time_total, e.count, e.key)
+                       for e in ka if e.device_type == DeviceType.CUDA
+                       and e.self_device_time_total > 0), reverse=True)
+        if rows:
+            break
+    else:
+        raise AssertionError("the profiler saw no device time")
+    device_ms = sum(r[0] for r in rows) / 1e3
+    wall = statistics.median(plain)
+    out = {"phase": "cycle_profile", "regime": "steady",
+           "wall_ms_unprofiled": wall, "wall_ms_profiled": row["cycle_ms"],
+           "device_ms": device_ms, "device_idle_share": 1.0 - device_ms / wall,
+           "kernel_launches": sum(e.count for e in ka if e.key in (
+               "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")),
+           "fused_choice_launches": row["launches"],
+           "fused_choice_device_ms": sum(
+               us for us, _, k in rows if "fused_choice" in k) / 1e3,
+           "device_kernels": [{"name": k[:80], "us": us, "count": cnt}
+                              for us, cnt, k in rows[:15]],
+           "timing": {k: row[k] for k in CYCLE_KEYS if k in row}}
+    emit(out)
+    return out
+
+
+PHASES = ("kernel", "edges", "small", "solve", "profile", "cycle")
 
 
 def main() -> int:
@@ -700,6 +1203,7 @@ def main() -> int:
     main_launches = phase_solve(dev)[1] if "solve" in phases else None
     if "profile" in phases:
         phase_profile(dev)
+    cyc = phase_cycle(dev) if "cycle" in phases else None
     if set(phases) != set(PHASES):
         return 0
     head = next(r for r in krows if r["R"] == 2 and r["eligible_rows"]
@@ -708,7 +1212,14 @@ def main() -> int:
         "name": "fused_choice", "route": "cuda",
         "source": "volcano_tpu_torch/csrc/fused_choice.cu",
         "replaces": "volcano_tpu/ops/pallas_kernels.py:201",
-        "launches": main_launches,
+        # the main path is the scheduling cycle: the measured burst and
+        # the timed steady cycles, each counted from 0
+        "launches": cyc["burst"]["launches"]
+        + sum(r["launches"] for r in cyc["steady"]),
+        "launches_per_burst_cycle": cyc["burst"]["launches"],
+        "launches_per_steady_cycle": statistics.median(
+            r["launches"] for r in cyc["steady"]),
+        "launches_headline_solve": main_launches,
         "max_abs_err": max(r["max_abs_err"] for r in krows),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

@@ -1,0 +1,421 @@
+"""The port's device-resident arena (volcano_tpu_torch.ops.device_cache)
+and packed entry points (ops.solver.solve_allocate_packed2d / _delta /
+_packed) against the JAX package's, on the CPU.
+
+- ``SnapshotArrays.packed()`` gives the JAX package's (fbuf, ibuf, layout)
+  bit for bit on seeded snapshots.
+- ``PackedDeviceCache(device="cpu")``: plan kinds, byte accounting, the
+  power-of-two padding, ``invalidate`` / ``reset`` and zero-dirty
+  sessions, mirroring tests/test_arena.py's unit contracts.
+- Arena vs cold: over churned sessions the delta path (in-place scatter
+  into the resident buffers, views of them into the solve) gives the same
+  ``compact`` as a cold ``solve_allocate`` of the same arrays, and as the
+  JAX package's ``solve_allocate_delta`` run op by op (``jax.disable_jit``:
+  XLA's CPU jit contracts FMAs, see test_torch_solver.py). Tolerance:
+  exact.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from volcano_tpu.ops import PackedDeviceCache as JPackedDeviceCache
+from volcano_tpu.ops import solver as js
+from volcano_tpu_torch.ops import PackedDeviceCache
+from volcano_tpu_torch.ops import solver as ts
+from volcano_tpu_torch.ops.device_cache import _pow2_bucket
+
+from test_torch_flatten import cluster_spec, flatten
+from test_torch_solver import params_dict
+
+
+@pytest.mark.parametrize("seed,kw", [
+    (0, {}),
+    (1, {"gpu": True}),
+    (3, {"n_nodes": 37, "n_jobs": 9, "tasks_per_job": 5, "n_queues": 2}),
+])
+def test_packed_bit_identical_to_jax(seed, kw):
+    spec = cluster_spec(seed, **kw)
+    jf, ji, jl = flatten("jax", spec).packed()
+    tf, ti, tl = flatten("torch", spec).packed()
+    assert tl == jl
+    assert {k[1] for k in tl} == {"f", "i", "b"}
+    assert (tf.dtype, ti.dtype) == (jf.dtype, ji.dtype)
+    assert tf.tobytes() == jf.tobytes()
+    assert ti.tobytes() == ji.tobytes()
+
+
+def test_unpack_views_round_trip():
+    arr = flatten("torch", cluster_spec(2))
+    fbuf, ibuf, layout = arr.packed()
+    d = ts._unpack(torch.from_numpy(fbuf), torch.from_numpy(ibuf), layout)
+    host = arr.numpy_dict()
+    assert sorted(d) == sorted(host)
+    for k, v in d.items():
+        assert v.numpy().dtype == host[k].dtype, k
+        np.testing.assert_array_equal(v.numpy(), host[k], err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# PackedDeviceCache units
+# ---------------------------------------------------------------------------
+
+def _problem(seed=6):
+    arr = flatten("torch", cluster_spec(seed, n_nodes=24, n_jobs=10))
+    return arr, params_dict(arr, binpack=1.0)
+
+
+def test_needs_a_device_or_an_explicit_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PackedDeviceCache()
+    assert PackedDeviceCache(device="cpu").device.type == "cpu"
+
+
+def test_plan_kinds_accounting_and_padding():
+    C = 16
+    arr, _ = _problem()
+    dc = PackedDeviceCache(chunk=C, device="cpu")
+    fbuf, ibuf, layout = arr.packed()
+    kind, payload = dc.plan_delta(fbuf, ibuf, layout)
+    # first session: full ship, returned as a no-op fused delta
+    assert kind == "fused" and dc.last_full_ship and dc.full_ships == 1
+    cf, ci = dc._dev_f.shape[0], dc._dev_i.shape[0]
+    assert dc.last_shipped_chunks == cf + ci
+    assert dc.last_shipped_bytes == dc.full_upload_bytes() \
+        == (cf + ci) * C * 4
+    assert dc._dev_f.device.type == "cpu"
+    # the resident buffers are copies, not views of the host mirror
+    assert dc._dev_f.data_ptr() != dc._host_f.ctypes.data
+
+    # zero-dirty: resident buffers, nothing shipped
+    kind, payload = dc.plan_delta(fbuf, ibuf, layout)
+    assert kind == "updated" and dc.last_shipped_bytes == 0
+    assert payload[0] is dc._dev_f
+
+    # three dirty float chunks -> fused, indices padded to 4 with a
+    # repeat of the first, whose padded rows match the real one
+    f2 = fbuf.copy()
+    f2[np.array([0, 2, 5]) * C] = -3.5
+    kind, (f2d, i2d, fi, fv, ii, iv) = dc.plan_delta(f2, ibuf, layout)
+    assert kind == "fused" and not dc.last_full_ship
+    assert list(fi[:3]) == [0, 2, 5] and (fi[3:] == 0).all()
+    assert fi.size == iv.shape[0] == PackedDeviceCache.FUSED_SLOTS
+    for pos in range(3, fi.size):
+        assert np.array_equal(fv[pos], fv[0])
+    assert dc.last_shipped_chunks == 3
+    assert dc.last_shipped_bytes == fv.nbytes + iv.nbytes + fi.nbytes \
+        + ii.nbytes
+    # the plan committed the mirror; the scatter belongs to the solve
+    assert np.array_equal(dc._host_f[:f2.size], f2)
+    ts.solve_allocate_delta(f2d, i2d, fi, fv, ii, iv, layout,
+                            params_dict(arr, binpack=1.0))
+    assert np.array_equal(dc._dev_f.reshape(-1).numpy(), dc._host_f)
+
+    # more dirty chunks than the fused slots: scattered here, "updated"
+    f3 = f2.copy()
+    n_dirty = PackedDeviceCache.FUSED_SLOTS + 1
+    assert cf >= n_dirty
+    f3[np.arange(n_dirty) * C] = -7.25  # (an inf entry ignores += 1)
+    kind, _ = dc.plan_delta(f3, ibuf, layout)
+    assert kind == "updated" and dc.last_shipped_chunks == n_dirty
+    assert dc.last_shipped_bytes == _pow2_bucket(n_dirty) * (C * 4 + 4)
+    assert np.array_equal(dc._dev_f.reshape(-1).numpy()[:f3.size], f3)
+    assert dc.sessions == 4 and dc.delta_sessions == 3
+    assert dc.arena_hit_rate == 0.75
+
+    # a layout change full-ships again
+    _, _, layout2 = flatten("torch", cluster_spec(
+        6, n_nodes=40, n_jobs=10)).packed()
+    assert layout2 != layout
+    dc.plan_delta(fbuf, ibuf, layout2)
+    assert dc.last_full_ship and dc.full_ships == 2
+
+
+def _session(dc, arr, params, flags):
+    fbuf, ibuf, layout = arr.packed()
+    p = dc.params_device(params)
+    kind, payload = dc.plan_delta(fbuf, ibuf, layout)
+    if kind == "updated":
+        res = ts.solve_allocate_packed2d(*payload, layout, p, **flags)
+    else:
+        res, nf, ni = ts.solve_allocate_delta(*payload, layout, p, **flags)
+        dc.commit(nf, ni)
+    return res.compact.numpy()
+
+
+FLAGS = dict(herd_mode="pack", score_families=("binpack", "kube"))
+
+
+def test_invalidate_keeps_params_and_reships_once():
+    arr, params = _problem()
+    dc = PackedDeviceCache(device="cpu")
+    c1 = _session(dc, arr, params, FLAGS)
+    assert dc.full_ships == 1 and dc.params_repins == 1
+    pinned = dc._params_dev
+    dc.invalidate()
+    assert dc._dev_f is None and dc._layout is None
+    assert dc._params_blob is not None
+    c2 = _session(dc, arr, params, FLAGS)
+    assert dc.full_ships == 2 and dc.last_full_ship
+    assert dc.params_repins == 1 and dc._params_dev is pinned
+    c3 = _session(dc, arr, params, FLAGS)
+    assert dc.full_ships == 2 and dc.last_shipped_bytes == 0
+    assert np.array_equal(c1, c2) and np.array_equal(c1, c3)
+
+
+def test_invalidate_repins_params_that_became_unusable():
+    arr, params = _problem()
+    dc = PackedDeviceCache(device="cpu")
+    _session(dc, arr, params, FLAGS)
+    dc._params_dev["node_static"] = torch.empty(0, device="meta")
+    dc.invalidate()
+    _session(dc, arr, params, FLAGS)
+    assert dc.params_repins == 2
+    assert dc._params_dev["node_static"].device.type == "cpu"
+
+
+def test_hard_reset_drops_everything():
+    arr, params = _problem()
+    dc = PackedDeviceCache(device="cpu")
+    _session(dc, arr, params, FLAGS)
+    dc.reset()
+    assert dc._params_blob is None and dc._params_dev is None
+    assert dc._host_f is None and dc._dev_f is None
+    _session(dc, arr, params, FLAGS)
+    assert dc.full_ships == 2 and dc.params_repins == 2
+
+
+def test_failure_after_scatter_recovers_through_invalidate(monkeypatch):
+    """The solve fails after its in-place scatter landed: invalidate()
+    must make the next session re-ship from its own snapshot, so the
+    result equals a cold solve (the mirror already holds the failed
+    session's chunks and cannot be diffed against)."""
+    arr, params = _problem()
+    dc = PackedDeviceCache(device="cpu")
+    _session(dc, arr, params, FLAGS)
+    arr.node_idle[3] *= 0.5
+    real = ts.solve_allocate_packed2d
+
+    def boom(*a, **k):
+        raise RuntimeError("injected device failure after the scatter")
+
+    monkeypatch.setattr(ts, "solve_allocate_packed2d", boom)
+    with pytest.raises(RuntimeError, match="after the scatter"):
+        _session(dc, arr, params, FLAGS)
+    monkeypatch.setattr(ts, "solve_allocate_packed2d", real)
+    dc.invalidate()
+    arr.node_idle[5] *= 0.5
+    got = _session(dc, arr, params, FLAGS)
+    assert dc.last_full_ship
+    cold = ts.solve_allocate(arr.numpy_dict(), params, device="cpu",
+                             **FLAGS).compact.numpy()
+    assert np.array_equal(got, cold)
+
+
+# ---------------------------------------------------------------------------
+# arena vs cold vs the JAX package, over churned sessions
+# ---------------------------------------------------------------------------
+
+def _churn(arr, rng):
+    """Mutate a session's flatten in place the way a cycle would: node
+    rows lose idle to new residents, some tasks leave the pending set,
+    gang sizes move. Keeps the layout (shapes) fixed."""
+    n_valid = int(arr.node_valid.sum())
+    for i in rng.choice(n_valid, 3, replace=False):
+        take = arr.node_idle[i] * np.float32(rng.uniform(0.1, 0.6))
+        arr.node_idle[i] -= take
+        arr.node_used[i] += take
+        arr.node_npods[i] += 1
+    valid_t = np.nonzero(arr.task_valid)[0]
+    arr.task_valid[rng.choice(valid_t, 2, replace=False)] = False
+    valid_j = np.nonzero(arr.job_valid)[0]
+    for j in rng.choice(valid_j, 2, replace=False):
+        arr.job_min[j] = max(1, int(arr.job_min[j]) - 1)
+
+
+@pytest.mark.parametrize("flags", [
+    dict(herd_mode="spread", score_families=("kube",), use_queue_cap=True,
+         use_drf_order=True),
+    dict(herd_mode="pack", score_families=("binpack",),
+         use_queue_cap=True),
+], ids=["default_conf", "binpack_conf"])
+def test_delta_sessions_equal_cold_and_jax(flags):
+    rng = np.random.default_rng(11)
+    arr = flatten("torch", cluster_spec(7, n_nodes=20, n_jobs=10,
+                                        tasks_per_job=3))
+    arr.drf_total = arr.node_alloc[arr.node_valid].sum(axis=0)
+    params = params_dict(arr, binpack=1.0, least=1.0, balanced=1.0)
+    tdc = PackedDeviceCache(chunk=64, device="cpu")
+    jdc = JPackedDeviceCache(chunk=64)
+    kinds = []
+    for s in range(6):
+        if s:
+            _churn(arr, rng)
+        fbuf, ibuf, layout = arr.packed()
+        got = _session(tdc, arr, params, flags)
+        kinds.append(tdc.last_full_ship)
+        # the solve left the resident buffers untouched: they equal the
+        # host mirror chunk for chunk
+        assert np.array_equal(tdc._dev_f.reshape(-1).numpy(), tdc._host_f)
+        assert np.array_equal(tdc._dev_i.reshape(-1).numpy(), tdc._host_i)
+        cold = ts.solve_allocate(arr.numpy_dict(), params, device="cpu",
+                                 **flags)
+        assert np.array_equal(got, cold.compact.numpy()), s
+        with jax.disable_jit():
+            jp = jdc.params_device(params)
+            kind, payload = jdc.plan_delta(fbuf, ibuf, layout)
+            if kind == "updated":
+                jres = js.solve_allocate_packed2d(*payload, layout, jp,
+                                                  **flags)
+            else:
+                jres, nf, ni = js.solve_allocate_delta(*payload, layout,
+                                                       jp, **flags)
+                jdc.commit(nf, ni)
+            jc = np.asarray(jres.compact)
+        assert np.array_equal(got, jc), s
+        assert (tdc.last_shipped_bytes, tdc.last_shipped_chunks) == \
+            (jdc.last_shipped_bytes, jdc.last_shipped_chunks), s
+        assert (got >= 0).any()
+    # the first session full-shipped, every churned one was a delta
+    assert kinds == [True] + [False] * 5
+    assert tdc.delta_sessions == jdc.delta_sessions == 5
+
+
+def test_packed_entry_point_equals_cold():
+    arr, params = _problem(8)
+    fbuf, ibuf, layout = arr.packed()
+    a = ts.solve_allocate_packed(fbuf, ibuf, layout, params,
+                                 device="cpu", **FLAGS)
+    b = ts.solve_allocate(arr.numpy_dict(), params, device="cpu", **FLAGS)
+    for k in ("assigned", "kind", "job_ready", "compact"):
+        assert torch.equal(getattr(a, k), getattr(b, k)), k
+
+
+def test_update_scatters_the_dirty_chunks_in_place():
+    arr, _ = _problem()
+    dc = PackedDeviceCache(chunk=16, device="cpu")
+    fbuf, ibuf, layout = arr.packed()
+    f2d, i2d = dc.update(fbuf, ibuf, layout)
+    assert dc.last_full_ship
+    f2 = fbuf.copy()
+    f2[np.array([1, 4]) * 16] = -3.5
+    g2d, _ = dc.update(f2, ibuf, layout)
+    assert g2d is f2d and not dc.last_full_ship
+    assert dc.last_shipped_chunks == 2
+    assert np.array_equal(f2d.reshape(-1).numpy()[:f2.size], f2)
+    assert np.array_equal(dc._host_f[:f2.size], f2)
+
+
+def test_session_pipeline_overlaps_and_collects_fifo():
+    """Three packed solves through the port's SessionPipeline: session 1
+    dispatches before session 0 is collected (a gate holds session 0's
+    collect), results come back in submit order, each equal to a cold
+    solve of its snapshot."""
+    import threading
+
+    from volcano_tpu_torch.ops import SessionPipeline, start_readback
+
+    pipe = SessionPipeline(depth=2)
+    gate = threading.Event()
+    colds = []
+
+    def make(sn):
+        arr = flatten("torch", cluster_spec(9 + sn % 2, n_nodes=16,
+                                            n_jobs=6))
+        params = params_dict(arr, binpack=1.0)
+        colds.append(ts.solve_allocate(arr.numpy_dict(), params,
+                                       device="cpu", **FLAGS).compact)
+
+        def dispatch():
+            return start_readback(
+                ts.solve_allocate_packed(*arr.packed(), params,
+                                         device="cpu", **FLAGS).compact)
+
+        def collect(rb):
+            if sn == 0:
+                gate.wait(10)
+            return rb.wait()[0]
+
+        return dispatch, collect
+
+    for sn in range(3):
+        pipe.submit(sn, *make(sn))
+        if sn == 1:
+            gate.set()
+    done = pipe.drain(timeout=60)
+    pipe.close()
+    assert [t.tag for t in done] == [0, 1, 2]
+    assert pipe.overlap_pairs() >= 1, pipe.events
+    for t, cold in zip(done, colds):
+        assert torch.equal(t.result(), cold)
+    with pytest.raises(ValueError):
+        SessionPipeline(depth=0)
+
+
+# ---------------------------------------------------------------------------
+# the arena inside the Scheduler: bind identity with the cold path
+# ---------------------------------------------------------------------------
+
+def test_scheduler_arena_vs_cold_binds_identical(monkeypatch):
+    """tests/test_arena.py's churn script on the port: 14 cycles of the
+    port's Scheduler with the arena and the event-sourced flatten, and
+    again with neither (a cold upload every cycle), including a bucket
+    crossing and two readback failures that trip the breaker. Binds are
+    identical cycle by cycle; full re-ships happen only at the first
+    session, the crossing and after the failures; params pin once."""
+    from volcano_tpu_torch.resilience import CircuitBreaker
+
+    from torch_helpers import SeededCluster
+
+    crossing, trips, cooldown = 6, (8, 9), 2
+
+    def run(arena):
+        c = SeededCluster("torch", 41, n_nodes=6, node_cpu=128,
+                          node_mem_gi=512)
+        clock = [0.0]
+        c.cache.breaker = CircuitBreaker(
+            "device-solver", failure_threshold=2, cooldown_s=cooldown,
+            clock=lambda: clock[0])
+        if not arena:
+            c.cache.device_cache = None
+            c.cache.flatten_cache = None
+        real = ts.decode_compact
+        boom = [False]
+
+        def maybe_boom(compact):
+            if boom[0]:
+                boom[0] = False
+                raise RuntimeError("injected device loss at readback")
+            return real(compact)
+
+        monkeypatch.setattr(ts, "decode_compact", maybe_boom)
+        dc = c.cache.device_cache
+        streams, full, fallback = [], [], []
+        for s in range(14):
+            clock[0] = float(s)
+            boom[0] = s in trips
+            ships = dc.full_ships if dc is not None else 0
+            n, size = (6, 4) if s == crossing else (2, 2)
+            c.cycle(n, churn=0.2, tasks=size)
+            streams.append(sorted(c.cache.binder.binds.items()))
+            if dc is not None and dc.full_ships > ships:
+                full.append(s)
+            if c.sched.last_cycle_timing.get("host_fallback"):
+                fallback.append(s)
+        monkeypatch.setattr(ts, "decode_compact", real)
+        return streams, full, fallback, dc
+
+    a_streams, full, a_fb, dc = run(arena=True)
+    c_streams, _, c_fb, _ = run(arena=False)
+    assert a_fb == c_fb and set(trips) <= set(a_fb)
+    assert a_streams == c_streams
+    probe = trips[1] + cooldown
+    assert {0, crossing, crossing + 1, trips[1], probe} == set(full), full
+    assert dc.params_repins == 1 and dc.invalidations == 2
+    assert np.array_equal(dc._dev_f.reshape(-1).numpy(), dc._host_f)

@@ -1,0 +1,145 @@
+"""Store-level cluster builders for both packages (the port's own models
+for the port, the JAX package's for the reference) plus a seeded
+churning cluster that drives either package's Scheduler through the same
+cycles.
+
+``SeededCluster(pkg, spec_seed, ...)`` holds one ClusterStore, a
+SchedulerCache on FakeBinder/FakeEvictor and a Scheduler of package
+``pkg`` ("jax" or "torch"); ``cycle()`` submits the next seeded wave of
+gangs, completes a seeded share of the running pods (churn) and runs one
+cycle. Everything random comes from a numpy Generator seeded once, so two
+instances with the same seed apply the same mutations in the same order.
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Dict, Optional
+
+import numpy as np
+
+PACKAGES = {"jax": "volcano_tpu", "torch": "volcano_tpu_torch"}
+
+BINPACK_CONF = """
+actions: "enqueue, allocate, backfill"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+- plugins:
+  - name: drf
+  - name: predicates
+  - name: proportion
+  - name: binpack
+"""
+
+
+def pkg_mod(pkg: str, sub: str):
+    return importlib.import_module(f"{PACKAGES[pkg]}.{sub}")
+
+
+def build_pod(models, ann_key, namespace: str, name: str, node_name: str,
+              phase: str, req: Dict[str, str], group_name: str = "",
+              priority: Optional[int] = None,
+              node_selector: Optional[Dict[str, str]] = None):
+    ann = {ann_key: group_name} if group_name else {}
+    return models.Pod(name=name, namespace=namespace, node_name=node_name,
+                      phase=phase, annotations=ann,
+                      node_selector=node_selector or {},
+                      containers=[{"requests": dict(req)}],
+                      priority=priority)
+
+
+def build_node(models, name: str, alloc: Dict[str, str],
+               labels: Optional[Dict[str, str]] = None, pods: str = "110"):
+    rl = dict(alloc)
+    rl.setdefault("pods", pods)
+    return models.Node(name=name, labels=labels or {}, allocatable=rl,
+                       capacity=dict(rl))
+
+
+def build_pod_group(models, name: str, namespace: str, min_member: int,
+                    queue: str, phase=None):
+    return models.PodGroup(
+        name=name, namespace=namespace,
+        spec=models.PodGroupSpec(min_member=min_member, queue=queue),
+        status=models.PodGroupStatus(
+            phase=phase or models.PodGroupPhase.PENDING))
+
+
+def build_queue(models, name: str, weight: int = 1):
+    return models.Queue(name=name, spec=models.QueueSpec(weight=weight))
+
+
+class SeededCluster:
+    """One package's store + cache + scheduler over a seeded cluster."""
+
+    def __init__(self, pkg: str, seed: int, n_nodes: int = 12,
+                 n_queues: int = 3, conf: Optional[str] = None,
+                 device="cpu", node_cpu: int = 16, node_mem_gi: int = 64,
+                 zones: int = 0):
+        self.pkg = pkg
+        self.models = pkg_mod(pkg, "models")
+        self.ann_key = pkg_mod(pkg, "api").POD_GROUP_ANNOTATION
+        cache_mod = pkg_mod(pkg, "cache")
+        client = pkg_mod(pkg, "client")
+        self.rng = np.random.default_rng(seed)
+        self.store = client.ClusterStore()
+        kw = {"device": device} if pkg == "torch" else {}
+        self.cache = cache_mod.SchedulerCache(self.store, **kw)
+        self.cache.binder = cache_mod.FakeBinder()
+        self.cache.evictor = cache_mod.FakeEvictor()
+        self.cache.run()
+        m = self.models
+        for q in range(n_queues):
+            self.store.apply("queues", build_queue(m, f"q{q}", weight=q + 1))
+        for i in range(n_nodes):
+            labels = {"zone": f"z{i % zones}"} if zones else {}
+            self.store.create("nodes", build_node(
+                m, f"n{i:03d}", {"cpu": str(node_cpu),
+                                 "memory": f"{node_mem_gi}Gi"}, labels))
+        self.n_queues = n_queues
+        self.zones = zones
+        self.k = 0
+        self.running: list = []   # (name, namespace) of bound pods
+        sched_mod = pkg_mod(pkg, "scheduler")
+        self.sched = sched_mod.Scheduler(self.cache, scheduler_conf=conf)
+
+    def submit_gangs(self, n_gangs: int, tasks: int = 4) -> None:
+        m = self.models
+        for _ in range(n_gangs):
+            k = self.k
+            self.k += 1
+            q = f"q{int(self.rng.integers(0, self.n_queues))}"
+            size = int(self.rng.integers(1, tasks + 1))
+            min_member = int(self.rng.integers(1, size + 1))
+            prio = int(self.rng.integers(0, 3))
+            sel = ({"zone": f"z{int(self.rng.integers(0, self.zones))}"}
+                   if self.zones and k % 4 == 0 else None)
+            self.store.create("podgroups", build_pod_group(
+                m, f"g{k}", "ns", min_member, q))
+            for i in range(size):
+                req = {"cpu": str(int(self.rng.integers(1, 5))),
+                       "memory": f"{int(self.rng.integers(1, 9))}Gi"}
+                self.store.create("pods", build_pod(
+                    m, self.ann_key, "ns", f"g{k}-{i}", "", "Pending", req,
+                    f"g{k}", priority=prio, node_selector=sel))
+
+    def complete_some(self, frac: float) -> None:
+        """Delete a seeded share of the bound pods (jobs finishing)."""
+        bound = sorted(self.cache.binder.binds)
+        pick = [b for b in bound if self.rng.random() < frac]
+        for key in pick:
+            ns, name = key.split("/")
+            if self.store.try_get("pods", name, ns) is not None:
+                self.store.delete("pods", name, ns)
+            del self.cache.binder.binds[key]
+
+    def cycle(self, n_gangs: int, churn: float = 0.0, tasks: int = 4):
+        self.complete_some(churn)
+        self.submit_gangs(n_gangs, tasks)
+        before = dict(self.cache.binder.binds)
+        self.sched.run_once()
+        after = self.cache.binder.binds
+        return sorted((k, v) for k, v in after.items()
+                      if before.get(k) != v)

@@ -1,9 +1,13 @@
-"""PyTorch/CUDA port of the allocate solve.
+"""PyTorch/CUDA port of the scheduling cycle.
 
-Counterpart of the JAX package ``volcano_tpu`` for the session hot path:
-snapshot flatten (``ops.arrays``) -> round solve (``ops.solver``) -> compact
-decode, with the per-round task x node choice as a hand-written CUDA kernel
-for Hopper (``csrc/fused_choice.cu``, wrapped by ``ops.fused_choice``).
-Entry points run on the CUDA device unless the caller passes
-``device="cpu"``.
+Counterpart of the JAX package ``volcano_tpu``: ``scheduler.Scheduler``
+runs the default conf's cycle (enqueue, allocate, backfill) over the
+control plane's own copies (``framework``, ``plugins``, ``actions``,
+``cache``), and allocate takes the device path: event-sourced ordering
+(``ops.ordering``) and flatten (``ops.arrays``) -> the device-resident
+arena (``ops.device_cache``) -> round solve (``ops.solver``) with the
+per-round task x node choice as a hand-written CUDA kernel for Hopper
+(``csrc/fused_choice.cu``, wrapped by ``ops.fused_choice``) -> async
+result readback (``ops.pipeline``) -> Statement replay. Entry points run
+on the CUDA device unless the caller passes ``device="cpu"``.
 """

@@ -1,8 +1,17 @@
-"""Device-side allocate solve: flatten arrays, the fused choice kernel and
-the round solver."""
+"""Device-side allocate path: flatten arrays and the event-sourced
+ordering, the device-resident arena, the fused choice kernel, the round
+solver and its packed entry points, and the result readback."""
 
 from .arrays import (  # noqa: F401
     FlattenCache, ScoreParams, SnapshotArrays, bucket, flatten_snapshot,
 )
 from .convert import resolve_device, to_torch_arrays, to_torch_params  # noqa: F401
-from .solver import SolveResult, decode_compact, solve_allocate  # noqa: F401
+from .device_cache import PackedDeviceCache  # noqa: F401
+from .ordering import OrderCache  # noqa: F401
+from .pipeline import (  # noqa: F401
+    Readback, SessionPipeline, SessionTicket, start_readback,
+)
+from .solver import (  # noqa: F401
+    SolveResult, decode_compact, solve_allocate, solve_allocate_delta,
+    solve_allocate_packed, solve_allocate_packed2d,
+)

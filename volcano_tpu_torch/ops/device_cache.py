@@ -1,0 +1,369 @@
+"""Device-resident packed solver arena with chunked delta upload.
+
+Re-shipping the full packed snapshot (two buffers from
+``SnapshotArrays.packed``) every session costs a host->device copy of the
+whole problem, while a cluster typically changes a few rows per cycle.
+This cache keeps the two packed buffers resident on the device ACROSS
+scheduling sessions, chunked as ``[C, chunk]``, and ships only the chunks
+whose bytes changed since the previous session — the counterpart of the
+reference's informer deltas (client-go list-watch keeps the scheduler's
+mirror warm instead of re-listing the cluster,
+pkg/scheduler/cache/cache.go:319-402).
+
+Arena contract (what survives what):
+
+- **Chunked packed buffers** (``_dev_f``/``_dev_i``): device-resident
+  across sessions; dirty chunks are scattered into them IN PLACE
+  (``index_copy_``), either here (``update`` / the "updated" plan) or by
+  ``solver.solve_allocate_delta`` at the head of the solve. Dropped on
+  ``invalidate()``/``reset()``: after a failed dispatch a scatter may have
+  landed without its solve, so the next session re-ships them whole.
+- **Score params** (``params_device``): device-resident across sessions,
+  never written by a solve; re-validated (not re-uploaded) after
+  ``invalidate()``. Only content changes re-pin them.
+- **Host mirror** (``_host_f``/``_host_i``): host memory, kept so the
+  per-session diff is chunk-exact. A plan commits it BEFORE the solve
+  scatters, so after a failure only ``invalidate()`` (the forced full
+  re-ship) makes the device agree with it again — the allocate action
+  calls it on every device failure.
+
+Accounting (``last_shipped_bytes``, ``arena_hit_rate`` …) feeds the
+``volcano_arena_*`` metrics and ``Scheduler.last_cycle_timing``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .convert import resolve_device, to_torch_params
+
+
+def _pow2_bucket(n: int) -> int:
+    """Strict powers of two, deliberately NOT ops.arrays.bucket (whose
+    quarter-steps minimize padding): dirty-chunk counts vary every session,
+    so the scatter sees the fewest possible index shapes."""
+    b = 1
+    while b < n:
+        b <<= 1
+    return b
+
+
+def scatter_chunks(dev: torch.Tensor, idx, vals) -> None:
+    """``dev[idx] = vals`` in place over whole chunks (rows of ``dev``).
+    ``idx``/``vals`` are host arrays or tensors; duplicate indices must
+    carry identical rows (power-of-two padding repeats a dirty chunk), so
+    which duplicate lands last does not matter."""
+    dev.index_copy_(0, torch.as_tensor(idx).to(dev.device, torch.int64),
+                    torch.as_tensor(vals).to(dev.device, dev.dtype))
+
+
+class PackedDeviceCache:
+    """update(fbuf, ibuf, layout) -> (f2d, i2d) device tensors [C, chunk].
+
+    First call (or any layout/shape change) ships everything; later calls
+    diff against the previously shipped host copy chunk-wise and scatter
+    only dirty chunks. Chunk-index uploads are padded to powers of two.
+
+    ``device``: where the arena lives — None means the CUDA device and
+    raises when there is none; ``"cpu"`` keeps it on the host.
+    """
+
+    def __init__(self, chunk: int = 512, device=None):
+        self.chunk = chunk
+        self.device = resolve_device(device)
+        self._host_f: Optional[np.ndarray] = None  # padded copy, [Cf*chunk]
+        self._host_i: Optional[np.ndarray] = None
+        self._dev_f: Optional[torch.Tensor] = None  # [Cf, chunk] on device
+        self._dev_i: Optional[torch.Tensor] = None
+        self._layout = None
+        self._params_blob = None
+        self._params_dev = None
+        #: device buffers untrusted (a failed dispatch): next session
+        #: full-ships and re-validates params
+        self._params_suspect = False
+        # previous mirror buffers recycled as diff scratch
+        self._scratch_f: Optional[np.ndarray] = None
+        self._scratch_i: Optional[np.ndarray] = None
+        # -- arena accounting (diagnostics + volcano_arena_* metrics) ----
+        self.last_shipped_chunks = 0
+        self.last_shipped_bytes = 0     # bytes of the last delta/ship
+        self.last_full_ship = False
+        self.sessions = 0               # update/plan_delta calls
+        self.full_ships = 0             # sessions that re-shipped everything
+        self.delta_sessions = 0         # sessions that shipped a delta
+        self.invalidations = 0          # soft resets (dispatch failures)
+        self.params_repins = 0          # device params re-uploaded
+        self.total_shipped_bytes = 0
+
+    # -- arena introspection -------------------------------------------
+
+    @property
+    def arena_hit_rate(self) -> float:
+        """Fraction of sessions served by a delta against the resident
+        arena (1.0 = never re-shipped after the first session)."""
+        if not self.sessions:
+            return 0.0
+        return self.delta_sessions / self.sessions
+
+    def full_upload_bytes(self) -> int:
+        """Bytes of one full padded-buffer upload at the current layout."""
+        if self._host_f is None or self._host_i is None:
+            return 0
+        return int(self._host_f.nbytes + self._host_i.nbytes)
+
+    def reset(self) -> None:
+        """Hard reset: drop the mirror, the device-resident state AND the
+        pinned params so the next session rebuilds everything. Used when
+        the host-side mirror itself may have desynced from the device (a
+        scatter that failed part-way)."""
+        self._host_f = self._host_i = None
+        self._dev_f = self._dev_i = None
+        self._layout = None
+        self._params_blob = None
+        self._params_dev = None
+        self._params_suspect = False
+
+    def invalidate(self) -> None:
+        """Soft reset after a failed dispatch: the in-place scatter may
+        have written chunks the failed solve never consumed (or written
+        only some), and the plan already committed the mirror, so neither
+        the device buffers nor a diff against the mirror can be trusted.
+        Drop the chunked buffers — the next session full-ships them from
+        its own snapshot — and keep the pinned params, re-validating them
+        in place instead of re-uploading."""
+        self._dev_f = self._dev_i = None
+        self._layout = None  # forces the full re-ship
+        self._params_suspect = True
+        self.invalidations += 1
+
+    # -- shared mirror maintenance (update + plan_delta flows) ----------
+
+    def _full_ship(self, fbuf, ibuf, layout, cf: int, ci: int) -> None:
+        """(Re)establish the host mirror and device buffers wholesale."""
+        c = self.chunk
+        hf = np.zeros(cf * c, np.float32)
+        hf[:fbuf.size] = fbuf
+        hi = np.zeros(ci * c, np.int32)
+        hi[:ibuf.size] = ibuf
+        self._host_f, self._host_i = hf, hi
+        # copy=True: on a CPU arena from_numpy would alias the mirror, and
+        # the in-place scatters would then write the mirror too
+        self._dev_f = torch.from_numpy(hf.reshape(cf, c)).to(
+            self.device, copy=True)
+        self._dev_i = torch.from_numpy(hi.reshape(ci, c)).to(
+            self.device, copy=True)
+        self._layout = layout
+        self._account(cf + ci, hf.nbytes + hi.nbytes, full=True)
+
+    def _account(self, chunks: int, wire_bytes: int, full: bool) -> None:
+        self.sessions += 1
+        self.last_shipped_chunks = int(chunks)
+        self.last_shipped_bytes = int(wire_bytes)
+        self.last_full_ship = bool(full)
+        self.total_shipped_bytes += int(wire_bytes)
+        if full:
+            self.full_ships += 1
+        else:
+            self.delta_sessions += 1
+
+    def _needs_full_ship(self, layout, cf: int, ci: int) -> bool:
+        c = self.chunk
+        return (self._layout != layout or self._host_f is None
+                or self._host_f.size != cf * c
+                or self._host_i.size != ci * c)
+
+    def _diff(self, fbuf, ibuf, cf: int, ci: int):
+        """Pad new content into mirror-shaped buffers and locate dirty
+        chunks: (f2, i2, df, di). Does NOT update the mirror (see
+        _commit_mirror). The padded buffers come from the scratch pool —
+        the previous session's mirror, recycled."""
+        c = self.chunk
+        f2, i2 = self._scratch_f, self._scratch_i
+        if f2 is None or f2.size != cf * c:
+            f2 = np.zeros(cf * c, np.float32)
+        else:
+            f2[fbuf.size:] = 0.0
+        if i2 is None or i2.size != ci * c:
+            i2 = np.zeros(ci * c, np.int32)
+        else:
+            i2[ibuf.size:] = 0
+        self._scratch_f = self._scratch_i = None
+        f2[:fbuf.size] = fbuf
+        i2[:ibuf.size] = ibuf
+        df = np.nonzero((f2.reshape(cf, c)
+                         != self._host_f.reshape(cf, c)).any(axis=1))[0]
+        di = np.nonzero((i2.reshape(ci, c)
+                         != self._host_i.reshape(ci, c)).any(axis=1))[0]
+        return f2, i2, df, di
+
+    def _commit_mirror(self, f2, i2) -> None:
+        """Adopt the diffed buffers as the new mirror; the old mirror
+        becomes next session's diff scratch."""
+        self._scratch_f, self._scratch_i = self._host_f, self._host_i
+        self._host_f, self._host_i = f2, i2
+
+    def _apply_now(self, f2, i2, df, di, cf: int, ci: int) -> None:
+        """Scatter the dirty chunks into the resident buffers now, then
+        adopt the diff as the mirror."""
+        c = self.chunk
+        try:
+            self._apply(self._dev_f, df, f2.reshape(cf, c))
+            self._apply(self._dev_i, di, i2.reshape(ci, c))
+        except Exception:
+            # a partial scatter desyncs the device copy from the host
+            # mirror: drop everything so the next session re-ships in full
+            # instead of solving on stale data
+            self.reset()
+            raise
+        self._commit_mirror(f2, i2)
+        self._account(df.size + di.size,
+                      self._scatter_wire_bytes(df, di), full=False)
+
+    def update(self, fbuf: np.ndarray, ibuf: np.ndarray,
+               layout) -> Tuple[torch.Tensor, torch.Tensor]:
+        c = self.chunk
+        cf = -(-max(fbuf.size, 1) // c)
+        ci = -(-max(ibuf.size, 1) // c)
+        if self._needs_full_ship(layout, cf, ci):
+            self._full_ship(fbuf, ibuf, layout, cf, ci)
+            return self._dev_f, self._dev_i
+        f2, i2, df, di = self._diff(fbuf, ibuf, cf, ci)
+        self._apply_now(f2, i2, df, di, cf, ci)
+        return self._dev_f, self._dev_i
+
+    def _scatter_wire_bytes(self, df, di) -> int:
+        """Bytes of the separate-scatter path: each dirty set is padded to
+        a power of two (padded chunks repeat real content but still
+        cross to the device)."""
+        c = self.chunk
+        nf = _pow2_bucket(df.size) if df.size else 0
+        ni = _pow2_bucket(di.size) if di.size else 0
+        return (nf + ni) * c * 4 + (nf + ni) * 4
+
+    @classmethod
+    def _apply(cls, dev, idx, host2d) -> None:
+        if idx.size == 0:
+            return
+        pad = cls._pad_idx(idx, _pow2_bucket(idx.size))
+        scatter_chunks(dev, pad, host2d[pad])
+
+    # ------------------------------------------------------------------
+    # fused-dispatch flow: plan the delta, let the SOLVE apply it
+    # (ops.solver.solve_allocate_delta), then commit the returned buffers
+    # ------------------------------------------------------------------
+
+    #: fixed delta-slot count of the fused dispatch: sessions dirtying
+    #: more chunks take the separate scatter + packed2d solve
+    FUSED_SLOTS = 16
+
+    def plan_delta(self, fbuf: np.ndarray, ibuf: np.ndarray, layout):
+        """Diff against the host mirror WITHOUT dispatching the solve.
+
+        Returns (kind, payload):
+        - ("fused", (f2d, i2d, f_idx, f_vals, i_idx, i_vals)) — at most
+          FUSED_SLOTS dirty chunks: feed solve_allocate_delta, which
+          scatters them in place at the head of the solve; the caller
+          commit()s the returned buffers, and on a dispatch failure calls
+          invalidate() so the next session re-ships the chunked buffers in
+          full (reset() only if the host mirror itself is suspect).
+        - ("updated", (f2d, i2d)) — zero dirty chunks, or more than
+          FUSED_SLOTS: any scatters were applied here (reusing the diff
+          already computed); feed solve_allocate_packed2d.
+
+        On the first call (or a layout change) the full buffers are
+        shipped and a no-op fused delta (chunk 0 rewritten with identical
+        bytes) is returned, so the caller has one code path.
+        """
+        c = self.chunk
+        cf = -(-max(fbuf.size, 1) // c)
+        ci = -(-max(ibuf.size, 1) // c)
+        k = self.FUSED_SLOTS
+        if self._needs_full_ship(layout, cf, ci):
+            self._full_ship(fbuf, ibuf, layout, cf, ci)
+            zero = np.zeros(k, np.int32)
+            return "fused", (
+                self._dev_f, self._dev_i,
+                zero, np.broadcast_to(
+                    self._host_f.reshape(cf, c)[0], (k, c)).copy(),
+                zero, np.broadcast_to(
+                    self._host_i.reshape(ci, c)[0], (k, c)).copy())
+
+        f2, i2, df, di = self._diff(fbuf, ibuf, cf, ci)
+        if df.size == 0 and di.size == 0:
+            # unchanged snapshot: solve straight off the resident buffers
+            self._scratch_f, self._scratch_i = f2, i2
+            self._account(0, 0, full=False)
+            return "updated", (self._dev_f, self._dev_i)
+        if int(df.size) > k or int(di.size) > k:
+            self._apply_now(f2, i2, df, di, cf, ci)
+            return "updated", (self._dev_f, self._dev_i)
+        f_idx = self._pad_idx(df, k)
+        i_idx = self._pad_idx(di, k)
+        fv = f2.reshape(cf, c)[f_idx]
+        iv = i2.reshape(ci, c)[i_idx]
+        self._commit_mirror(f2, i2)
+        # fused cost: both value blocks always ship k chunks, plus the two
+        # index vectors
+        self._account(df.size + di.size,
+                      fv.nbytes + iv.nbytes + f_idx.nbytes + i_idx.nbytes,
+                      full=False)
+        return "fused", (self._dev_f, self._dev_i, f_idx, fv, i_idx, iv)
+
+    @staticmethod
+    def _pad_idx(idx: np.ndarray, k: int) -> np.ndarray:
+        """Chunk indices padded to k with repeats of the first (a repeat
+        writes an identical row, so the pad is a no-op scatter)."""
+        pad = np.full(k, idx[0] if idx.size else 0, np.int32)
+        pad[:idx.size] = idx.astype(np.int32)
+        return pad
+
+    def commit(self, f2d, i2d) -> None:
+        """Store the buffers returned by solve_allocate_delta (the same
+        tensors, scattered in place)."""
+        self._dev_f, self._dev_i = f2d, i2d
+
+    # ------------------------------------------------------------------
+    # device-resident score params: a few small arrays ([N] node_static
+    # dominates) that almost never change between cycles. Keep the device
+    # copies and re-put only when the content bytes change, when a
+    # suspect flag finds a copy unusable, or after a hard reset.
+    # ------------------------------------------------------------------
+
+    def _params_alive(self, dev_params: Optional[dict]) -> bool:
+        """Whether every pinned param is still a tensor on the arena's
+        device (a device reset would leave them unusable)."""
+        if not dev_params:
+            return False
+        return all(isinstance(v, torch.Tensor) and v.device == self.device
+                   for v in dev_params.values())
+
+    def _put_params(self, params: dict) -> dict:
+        """Device placement for the pinned score params."""
+        return to_torch_params(params, self.device)
+
+    def params_device(self, params: dict) -> dict:
+        def _ent(k, v):
+            # delimited key + dtype + shape + content: distinct params
+            # dicts whose concatenated bytes happen to line up must not
+            # collide and serve stale device params
+            a = np.asarray(v)
+            return b"\0".join((k.encode(), str(a.dtype).encode(),
+                               repr(a.shape).encode(), a.tobytes())) + b"\1"
+
+        blob = b"".join(_ent(k, v) for k, v in sorted(params.items()))
+        if blob == self._params_blob:
+            if not self._params_suspect:
+                return self._params_dev
+            # re-validate the pinned copies after a dispatch failure:
+            # content unchanged AND buffers usable -> keep them resident
+            if self._params_alive(self._params_dev):
+                self._params_suspect = False
+                return self._params_dev
+        self._params_dev = self._put_params(params)
+        self._params_blob = blob
+        self._params_suspect = False
+        self.params_repins += 1
+        return self._params_dev

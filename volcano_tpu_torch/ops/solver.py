@@ -719,3 +719,105 @@ def solve_allocate(arrays: Dict[str, object],
         assigned=assigned, kind=kind, job_ready=job_ready,
         rounds=torch.tensor(st.rounds, dtype=torch.int32, device=dev),
         compact=_compact(assigned, kind, N))
+
+
+# ---------------------------------------------------------------------------
+# packed-transfer entry points
+# ---------------------------------------------------------------------------
+
+def _unpack(fbuf, ibuf, layout) -> Dict[str, torch.Tensor]:
+    """The solver arrays as views into the packed buffers (``kind`` "f"
+    float32, "i" int32; "b" is the one copy, int32 -> bool). The solve
+    never writes its input arrays, so views of a resident arena stay
+    intact across sessions."""
+    d = {}
+    for k, kind, off, size, shape in layout:
+        if kind == "f":
+            d[k] = fbuf[off:off + size].view(shape)
+        else:
+            v = ibuf[off:off + size].view(shape)
+            d[k] = v != 0 if kind == "b" else v
+    return d
+
+
+def _packed_len(layout, f: bool) -> int:
+    return max(off + size for k, kind, off, size, shape in layout
+               if (kind == "f") == f)
+
+
+def solve_allocate_packed2d(f2d, i2d, layout, score_params,
+                            max_rounds: int = 64,
+                            max_gang_iters: int = 12,
+                            per_node_cap: int = 0,
+                            herd_mode: str = "pack",
+                            score_families: Tuple[str, ...] = ("binpack",),
+                            use_queue_cap: bool = False,
+                            use_drf_order: bool = False,
+                            use_hdrf_order: bool = False,
+                            work_conserving: bool = True,
+                            fused: str = "auto") -> SolveResult:
+    """solve_allocate over the chunked device-resident buffers kept by
+    ops.device_cache.PackedDeviceCache (``[C, chunk]`` tensors); runs on
+    their device."""
+    fbuf = f2d.reshape(-1)[:_packed_len(layout, True)]
+    ibuf = i2d.reshape(-1)[:_packed_len(layout, False)]
+    return solve_allocate(_unpack(fbuf, ibuf, layout), score_params,
+                          max_rounds, max_gang_iters, per_node_cap,
+                          herd_mode, score_families, use_queue_cap,
+                          use_drf_order, use_hdrf_order, work_conserving,
+                          fused, device=f2d.device)
+
+
+def solve_allocate_delta(f2d, i2d, f_idx, f_vals, i_idx, i_vals, layout,
+                         score_params,
+                         max_rounds: int = 64,
+                         max_gang_iters: int = 12,
+                         per_node_cap: int = 0,
+                         herd_mode: str = "pack",
+                         score_families: Tuple[str, ...] = ("binpack",),
+                         use_queue_cap: bool = False,
+                         use_drf_order: bool = False,
+                         use_hdrf_order: bool = False,
+                         work_conserving: bool = True,
+                         fused: str = "auto"):
+    """Dirty-chunk scatter + solve in one call: f_idx/f_vals (and
+    i_idx/i_vals) are the dirty chunk indices and replacement chunk
+    contents (duplicate indices carry identical rows, so power-of-two
+    padding is a no-op). The scatter writes the resident buffers in
+    place; returns (result, f2d, i2d) — the same tensors, updated — so
+    the caller's ``commit`` reads as it does for a donating runtime."""
+    from .device_cache import scatter_chunks
+
+    scatter_chunks(f2d, f_idx, f_vals)
+    scatter_chunks(i2d, i_idx, i_vals)
+    res = solve_allocate_packed2d(
+        f2d, i2d, layout, score_params, max_rounds, max_gang_iters,
+        per_node_cap, herd_mode, score_families, use_queue_cap,
+        use_drf_order, use_hdrf_order, work_conserving, fused)
+    return res, f2d, i2d
+
+
+def solve_allocate_packed(fbuf, ibuf, layout, score_params,
+                          max_rounds: int = 64,
+                          max_gang_iters: int = 12,
+                          per_node_cap: int = 0,
+                          herd_mode: str = "pack",
+                          score_families: Tuple[str, ...] = ("binpack",),
+                          use_queue_cap: bool = False,
+                          use_drf_order: bool = False,
+                          use_hdrf_order: bool = False,
+                          work_conserving: bool = True,
+                          fused: str = "auto",
+                          device: Optional[object] = None) -> SolveResult:
+    """solve_allocate over the host buffers of SnapshotArrays.packed():
+    two copies to ``device`` (CUDA when None; raises without one)."""
+    dev = resolve_device(device)
+    f = torch.from_numpy(np.ascontiguousarray(fbuf, np.float32)).to(
+        dev, copy=True)
+    i = torch.from_numpy(np.ascontiguousarray(ibuf, np.int32)).to(
+        dev, copy=True)
+    return solve_allocate(_unpack(f, i, layout), score_params, max_rounds,
+                          max_gang_iters, per_node_cap, herd_mode,
+                          score_families, use_queue_cap, use_drf_order,
+                          use_hdrf_order, work_conserving, fused,
+                          device=dev)

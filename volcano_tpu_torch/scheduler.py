@@ -1,0 +1,375 @@
+"""Scheduler: the periodic session loop (reference pkg/scheduler/scheduler.go:39-110).
+
+Each cycle: load (possibly hot-reloaded) conf -> OpenSession -> run each
+configured action -> CloseSession. The conf file is watched by mtime (the
+reference uses fsnotify; polling keeps this dependency-free).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+from typing import Optional
+
+from . import actions as _actions  # noqa: F401  (registers actions)
+from . import plugins as _plugins  # noqa: F401  (registers plugins)
+from .cache import SchedulerCache
+from .conf import DEFAULT_SCHEDULER_CONF, load_scheduler_conf
+from .framework import close_session, get_action, open_session
+from .metrics import metrics
+from .resilience import ActionTimeout
+
+log = logging.getLogger(__name__)
+
+DEFAULT_SCHEDULE_PERIOD = 1.0  # seconds (options.go:83)
+
+
+#: actions of the JAX package this package does not run yet, with the
+#: ROADMAP item that ports each
+UNPORTED_ACTIONS = {"preempt": "A6", "reclaim": "A6", "reschedule": "A8",
+                    "elect": "A8", "reserve": "A8"}
+
+
+def check_conf_ported(conf) -> None:
+    """Raise NotImplementedError for a conf that names an action, an
+    action mode or a plugin option this package does not have yet: at
+    conf loading, so it can never degrade into a host fallback later."""
+    from .framework.interface import check_mode_ported
+    from .framework import Arguments
+
+    for name in conf.actions:
+        item = UNPORTED_ACTIONS.get(name)
+        if item is not None:
+            raise NotImplementedError(
+                f"action {name!r} is not ported yet (ROADMAP {item})")
+    for c in conf.configurations:
+        check_mode_ported(Arguments(c.arguments).get("mode", ""))
+    for tier in conf.tiers:
+        for opt in tier.plugins:
+            if opt.name == "drf" and (
+                    opt.arguments.get("drf.enableHierarchy")
+                    or getattr(opt, "enabled_hierarchy", False)):
+                raise NotImplementedError(
+                    "drf with hierarchy (hdrf) is not ported yet "
+                    "(ROADMAP A2)")
+
+
+class Scheduler:
+    def __init__(self, cache: SchedulerCache,
+                 scheduler_conf: Optional[str] = None,
+                 conf_path: Optional[str] = None,
+                 period: float = DEFAULT_SCHEDULE_PERIOD,
+                 percentage_of_nodes_to_find: int = 100,
+                 compile_cache_dir: Optional[str] = None,
+                 prewarm: bool = False,
+                 pipeline_solver: bool = True,
+                 action_deadline_s: Optional[float] = None,
+                 breaker_failures: int = 3,
+                 breaker_cooldown_s: float = 30.0,
+                 solver_mode: Optional[str] = None):
+        if compile_cache_dir or prewarm:
+            raise NotImplementedError(
+                "compile_cache_dir / prewarm need the precompile pipeline, "
+                "which is not ported yet (ROADMAP A8)")
+        if solver_mode not in (None, "packed"):
+            raise NotImplementedError(
+                f"solver_mode {solver_mode!r} needs the sharded solver, "
+                "which is not ported yet (ROADMAP A7)")
+        # adaptive host-loop node sampling knob, instance-scoped
+        # (cmd/scheduler/app/options/options.go:37-40)
+        from .utils import NodeSampler
+        self.node_sampler = NodeSampler(percentage_of_nodes_to_find)
+        self.cache = cache
+        self.period = period
+        self.conf_path = conf_path
+        self._conf_mtime = 0.0
+        self._conf_text = scheduler_conf or DEFAULT_SCHEDULER_CONF
+        self._conf_bad_text: Optional[str] = None
+        self.actions = []
+        self.tiers = []
+        self.configurations = []
+        self.load_conf()
+        # resilience wiring (resilience/): the device-path circuit breaker
+        # lives on the CACHE so sessions and all solver-dispatching
+        # actions share one failure account, and the optional per-action
+        # deadline watchdog contains hung actions (None = actions run
+        # inline, exactly the pre-watchdog path)
+        from .resilience import ActionWatchdog, CircuitBreaker
+        if getattr(cache, "breaker", None) is None:
+            cache.breaker = CircuitBreaker(
+                "device-solver", failure_threshold=breaker_failures,
+                cooldown_s=breaker_cooldown_s)
+        self.action_deadline_s = action_deadline_s
+        self._watchdog = ActionWatchdog(action_deadline_s) \
+            if action_deadline_s else None
+        if solver_mode:
+            cache.solver_mode = solver_mode
+        # the allocate action's dispatch/collect overlap; decisions are
+        # identical with it on or off
+        cache.pipeline_solver = bool(pipeline_solver)
+
+    # -- conf hot reload (scheduler.go:112-170) -----------------------------
+
+    def load_conf(self) -> None:
+        text = self._conf_text
+        if self.conf_path and os.path.exists(self.conf_path):
+            mtime = os.path.getmtime(self.conf_path)
+            if mtime != self._conf_mtime:
+                self._conf_mtime = mtime
+                with open(self.conf_path) as f:
+                    text = f.read()
+        if text == self._conf_bad_text:
+            return  # known-bad reload, already logged: keep the last good
+        try:
+            conf = load_scheduler_conf(text)
+            check_conf_ported(conf)
+            acts = []
+            for name in conf.actions:
+                action = get_action(name)
+                if action is None:
+                    raise ValueError(f"failed to find action {name}")
+                acts.append(action)
+        except NotImplementedError:
+            raise  # an unported option is not a malformed conf
+        except Exception:
+            if not self.actions:
+                raise  # first load: there is no last-good conf to keep
+            # last-good retention: a malformed hot-reloaded conf must not
+            # raise out of every cycle until someone fixes the file —
+            # keep scheduling on the previous conf, log once per change
+            self._conf_bad_text = text
+            metrics.conf_load_errors.inc()
+            log.exception("scheduler conf reload failed; keeping the "
+                          "last good conf")
+            return
+        self._conf_bad_text = None
+        self._conf_text = text
+        self.actions = acts
+        self.tiers = conf.tiers
+        self.configurations = conf.configurations
+
+    # -- the loop -----------------------------------------------------------
+
+    def run_once(self) -> None:
+        # Keep collector pauses out of the scheduling cycle: a 10k-pod
+        # burst churns enough objects that a mid-replay gen-2 GC adds
+        # hundreds of ms of jitter to exactly the latency the e2e
+        # histogram tracks. Collection happens between cycles instead
+        # (run() sleeps out the remainder of the period; see _maybe_gc).
+        import gc
+        gc_was_enabled = gc.isenabled()
+        if gc_was_enabled:
+            gc.disable()
+        try:
+            self._run_once_inner()
+        finally:
+            if gc_was_enabled:
+                gc.enable()
+
+    def _maybe_gc(self) -> None:
+        """Between-cycles housekeeping: collect the young generations every
+        cycle, and the full heap periodically — gen 2 never auto-collects
+        while GC is disabled inside cycles, so without the periodic full
+        pass promoted cyclic garbage would accumulate for the life of the
+        process."""
+        import gc
+        self._gc_cycles = getattr(self, "_gc_cycles", 0) + 1
+        if self._gc_cycles % 20 == 0:
+            gc.collect()
+        else:
+            gc.collect(1)
+
+    def _run_once_inner(self) -> None:
+        t0 = time.perf_counter()
+        self.load_conf()
+        ssn = open_session(self.cache, self.tiers, self.configurations)
+        ssn.node_sampler = self.node_sampler
+        timing = {}
+        t_open = time.perf_counter()
+        timing["open_ms"] = (t_open - t0) * 1e3
+        try:
+            for epoch, action in enumerate(self.actions):
+                ta = time.perf_counter()
+                name = action.name()
+                ssn._action_epoch = epoch
+                try:
+                    self._execute_action(ssn, action)
+                except ActionTimeout:
+                    # deadline breach: the watchdog already dumped stacks;
+                    # roll the abandoned action's statements back, fence
+                    # its epoch so a zombie commit becomes a discard, and
+                    # run the REMAINING actions of this cycle
+                    ssn._contained_epochs.add(epoch)
+                    n = ssn.discard_open_statements()
+                    timing[f"{name}_timeout"] = 1.0
+                    metrics.action_timeouts_total.inc(
+                        labels={"action": name})
+                    log.error("action %s exceeded its deadline; contained "
+                              "(%d open statement(s) discarded), running "
+                              "the remaining actions", name, n)
+                except Exception:
+                    # a throwing action is contained the same way: its
+                    # uncommitted statements discard and the cycle goes on
+                    # (the reference contains per-cycle errors identically
+                    # — one bad action must not starve backfill forever)
+                    n = ssn.discard_open_statements()
+                    timing[f"{name}_error"] = 1.0
+                    metrics.action_failures_total.inc(
+                        labels={"action": name})
+                    log.exception("action %s failed; contained (%d open "
+                                  "statement(s) discarded), running the "
+                                  "remaining actions", name, n)
+                dt = time.perf_counter() - ta
+                timing[f"{name}_ms"] = dt * 1e3
+                metrics.action_scheduling_latency.observe(
+                    dt * 1e6, labels={"action": name})
+            # the allocate action's internal decomposition when it ran in
+            # solver mode (flatten/solve/replay)
+            for k, v in (ssn.solver_options.get("timing") or {}).items():
+                timing[k] = v
+        finally:
+            tc = time.perf_counter()
+            close_session(ssn)
+            timing["close_ms"] = (time.perf_counter() - tc) * 1e3
+        total = (time.perf_counter() - t0) * 1e3
+        timing["total_ms"] = total
+        self._export_pipeline_metrics(timing)
+        self.last_cycle_timing = timing
+        metrics.e2e_scheduling_latency.observe(total)
+
+    def _execute_action(self, ssn, action) -> None:
+        """Run one action, inline or under the deadline watchdog; the
+        slow_action fault point lets the chaos harness simulate a hang."""
+        from .resilience import faults
+
+        def run():
+            faults.fire("slow_action")
+            action.execute(ssn)
+
+        if self._watchdog is None:
+            run()
+        else:
+            self._watchdog.run(action.name(), run)
+
+    #: timing keys exported per cycle as the volcano_session_phase_ms
+    #: gauge — the cycle's flatten/upload/solve/replay decomposition
+    #: (upload = pack + delta_plan host share)
+    _PHASE_KEYS = ("open_ms", "flatten_ms", "pack_ms", "delta_plan_ms",
+                   "dispatch_ms", "overlap_ms", "readback_ms", "solve_ms",
+                   "replay_ms", "close_ms", "total_ms")
+
+    def _export_pipeline_metrics(self, timing: dict) -> None:
+        """Surface per-phase latency and the flatten / ordering / arena /
+        breaker accounting in both the metrics registry and
+        last_cycle_timing, so a cycle that degrades (a flatten or ordering
+        fallback, a full re-ship, a host fallback) is observable, not a
+        mystery spike in total_ms."""
+        for key in self._PHASE_KEYS:
+            if key in timing:
+                metrics.session_phase_ms.set(
+                    timing[key], labels={"phase": key[:-3]})
+        # event-sourced flatten accounting (ops.arrays FlattenCache
+        # ledger): which assembly path this cycle took, how many rows the
+        # event patch touched, the patch-vs-full latency split, and the
+        # fallback ladder's reason counters — exported alongside the
+        # per-phase gauges because a cycle silently degrading from
+        # O(events) to O(cluster) is exactly the regression these exist
+        # to catch
+        fc = getattr(self.cache, "flatten_cache", None)
+        if fc is not None and getattr(fc, "events_enabled", False) \
+                and "flatten_mode" in timing:
+            mode = timing["flatten_mode"]
+            metrics.flatten_cycles_total.inc(labels={"mode": mode})
+            metrics.flatten_events_applied.set(
+                timing.get("flatten_events_applied", 0.0))
+            rows = timing.get("flatten_rows_patched", 0.0)
+            metrics.flatten_rows_patched.set(rows)
+            if rows:
+                metrics.flatten_rows_patched_total.inc(rows)
+            if "flatten_patch_ms" in timing:
+                metrics.flatten_patch_ms.set(timing["flatten_patch_ms"])
+            if "flatten_full_ms" in timing:
+                metrics.flatten_full_ms.set(timing["flatten_full_ms"])
+            reason = timing.get("flatten_fallback_reason")
+            if reason:
+                metrics.flatten_fallbacks_total.inc(
+                    labels={"reason": str(reason)})
+        # event-sourced ordering accounting (ops.ordering OrderCache):
+        # same shape as the flatten family — which path the cycle's
+        # ordering pass took, how many job entries it patched, the
+        # event-vs-full latency split, and the typed fallback counters
+        ocache = getattr(self.cache, "order_cache", None)
+        if ocache is not None and "order_mode" in timing:
+            mode = timing["order_mode"]
+            metrics.order_cycles_total.inc(labels={"mode": mode})
+            patched = timing.get("order_entries_patched", 0.0)
+            metrics.order_entries_patched.set(patched)
+            if patched and mode == "event":
+                metrics.order_entries_patched_total.inc(patched)
+            if "order_ms" in timing:
+                if mode in ("reuse", "event"):
+                    metrics.order_ms.set(timing["order_ms"])
+                else:
+                    metrics.order_full_ms.set(timing["order_ms"])
+            reason = timing.get("order_fallback_reason")
+            if reason:
+                metrics.order_fallbacks_total.inc(
+                    labels={"reason": str(reason)})
+        # device-resident arena accounting (ops.device_cache): bytes
+        # shipped per steady session and the hit rate say whether the
+        # delta upload is engaged (per-cycle bytes come from the allocate
+        # action's timing; the gauges are the arena's cumulative view)
+        dc = getattr(self.cache, "device_cache", None)
+        if dc is not None and dc.sessions:
+            lbl = {"mode": "packed"}
+            timing["arena_hit_rate"] = dc.arena_hit_rate
+            metrics.arena_bytes_shipped.set(
+                timing.get("arena_bytes_shipped", dc.last_shipped_bytes),
+                labels=lbl)
+            metrics.arena_bytes_shipped_total.set(
+                dc.total_shipped_bytes, labels=lbl)
+            metrics.arena_hit_rate.set(dc.arena_hit_rate, labels=lbl)
+            metrics.arena_sessions_total.set(
+                dc.delta_sessions, labels={"outcome": "delta", **lbl})
+            metrics.arena_sessions_total.set(
+                dc.full_ships, labels={"outcome": "full", **lbl})
+            metrics.arena_invalidations_total.set(
+                dc.invalidations, labels=lbl)
+            metrics.arena_params_repins_total.set(
+                dc.params_repins, labels=lbl)
+        br = getattr(self.cache, "breaker", None)
+        if br is not None:
+            # the degradation ladder made observable per cycle: 0=closed
+            # (device path live), 1=half-open probe, 2=open (host oracle)
+            timing["breaker_state"] = float(br.state_code)
+            timing["breaker_fallback_cycles"] = float(br.fallback_cycles)
+
+    def run(self, stop_after: Optional[int] = None) -> None:
+        """Run the periodic loop; stop_after bounds cycles for tests.
+
+        The loop deliberately never blocks on the cache's async bind
+        effectors: with async_effectors on, cycle N's store writes drain
+        on the effector pool while cycle N+1 opens its session — the
+        snapshot clone and the effector-side accounting both run behind
+        the cache lock, so the overlap is race-free and the next snapshot
+        always sees a consistent mirror (the writes it may not yet see
+        are exactly the ones an informer-fed reference scheduler would
+        also still have in flight)."""
+        self.cache.run()
+        self.cache.wait_for_cache_sync()
+        cycles = 0
+        while stop_after is None or cycles < stop_after:
+            start = time.time()
+            self.cache.process_resync_tasks()
+            try:
+                self.run_once()
+            except Exception:
+                log.exception("scheduling cycle failed")
+            cycles += 1
+            if stop_after is not None and cycles >= stop_after:
+                break
+            self._maybe_gc()
+            elapsed = time.time() - start
+            if elapsed < self.period:
+                time.sleep(self.period - elapsed)
