@@ -12,7 +12,9 @@ checkout, then, printing one JSON line per phase:
              and spills per kernel (a spill fails the run);
 3. kernel  - fused_choice against its plain PyTorch version at the headline
              shape (T=10240 tasks, N=2048 nodes) with R=2 and R=3, for each
-             score-family set, with 90% and with 10% of the rows eligible:
+             score-family set, with 90% and with 10% of the rows eligible,
+             and at the hdrf cycles' shape (T=5120, N=1024, R=3, kube)
+             with every row eligible:
              best_score, best_idx (every row, ties included) and node_max
              equal bit for bit. `ms` is device time per call
              (torch.profiler, the sum of the kernels one call launches,
@@ -60,7 +62,28 @@ checkout, then, printing one JSON line per phase:
              finish: regime "event"), and a small churned cluster through
              the Scheduler on the card and on the host, binds identical
              (cycle_small);
-9. the kernels line, then the result line.
+9. hdrf    - allocate with the drf hierarchy (hdrf) at BASELINE config
+             #5's scale: 1000 nodes of 8 cpu / 32Gi / 8 GPUs, the three
+             leaf queues of example/hierarchical-jobs.yaml, 500 gangs of
+             10 pods (every 5th asks for GPUs). A warm-up burst, a
+             measured burst whose every kernel launch, the placeability
+             prefilter's included, is held against the plain version,
+             then 5 steady cycles (5 gangs finish, 5 arrive). Per cycle:
+             the timing, binds and dominant share per queue beside the
+             weights' split, and the kernel's launches with the
+             prefilter's counted apart;
+10. evict  - preempt (BASELINE config #4: 2000 running low-priority pods
+             on 200 nodes, a high-priority gang of 1000) and reclaim (a
+             reclaimable queue filling the nodes, 100 high-priority jobs
+             of 10 in another queue) through the Scheduler: every
+             eviction allowed, no node's future idle below zero, the gang
+             pipelined whole; each eviction solve held against the same
+             solve on CPU tensors; the victims deleted and the claimers
+             bound the next cycle;
+11. sequential - one cycle with allocate in mode: sequential (500 pods,
+             50 nodes, binpack + predicates) on the card and on the host:
+             the same binds;
+12. the kernels line, then the result line.
 
 `--phases kernel,edges` runs a subset (device and build always run) and
 then prints neither of the last two lines.
@@ -289,6 +312,8 @@ def kernel_inputs(seed: int, T: int, N: int, R: int, dev,
     pods_ok = (rng.random(N) < 0.95).astype(np.float32)
     if variant == "none_eligible":
         elig[:] = 0.0
+    elif variant == "all_eligible":
+        elig[:] = 1.0
     elif variant == "last_row":
         elig[:] = 0.0
         elig[-1] = 1.0
@@ -392,9 +417,13 @@ def check_choice(args, fam, what: str) -> dict:
 #: (T, N, R, variant), checked for every score-family set here and by the
 #: card tests: shapes off every tile (the kernel's node tile is 128 or 64
 #: nodes, its row ranges T / G), later-round row masks, ties across node
-#: tiles, the fit test's boundaries, zero scores of either sign, and the
+#: tiles, the fit test's boundaries, zero scores of either sign, the
 #: steady scheduling cycle's shape (one 10-gang wave: T=112 over N=2048)
+#: and the hdrf burst's (T=5120 over N=1024, R=3), whose placeability
+#: prefilter launches the kernel with every row eligible, then fewer
 EDGE_CASES = (
+    (5120, 1024, 3, "random"), (5120, 1024, 3, "none_eligible"),
+    (5120, 1024, 3, "all_eligible"),
     (112, 2048, 2, "random"), (112, 2048, 2, "none_eligible"),
     (1, 1, 2, "random"), (1, 2048, 3, "random"), (1000, 1, 2, "random"),
     (37, 45, 3, "random"), (40, 128, 2, "random"), (333, 1001, 3, "random"),
@@ -430,39 +459,53 @@ def phase_edges(dev):
 READINGS = 5   # device-time readings per kernel row; `ms` is their median
 
 
-def phase_kernel(dev):
+#: the hdrf cycles' kernel shape (T=5120 over N=1024, R=3, the hdrf conf's
+#: kube scores), every row eligible: the placeability prefilter's mask in
+#: a burst's first round
+HDRF_KERNEL = (5120, 1024, 3, ("kube",))
+
+
+def kernel_row(args, fam, what: str) -> dict:
+    """One kernel row: checked against the plain version, then its device
+    time (median of READINGS), host-paced call time, the plain version's
+    device time and the bound, over the eligible rows."""
     from volcano_tpu_torch.ops import fused_choice as fc
 
+    (T, R), N = args[0].shape, args[1].shape[0]
+    n_elig = int((args[5] != 0).sum().item())
+    res = check_choice(args, fam, what)
+    readings = sorted((device_ms(lambda: fc.fused_choice(*args, fam))
+                       for _ in range(READINGS)), key=lambda r: r[0])
+    ms, kernels = readings[READINGS // 2]      # the median
+    c_ms = call_ms(lambda: fc.fused_choice(*args, fam))
+    plain_ms, _ = device_ms(lambda: fc.fused_choice_plain(*args, fam),
+                            calls=10)
+    nbytes, ops = fc.fused_choice_cost(T, N, R, fam, n_elig)
+    b_ms, b_by = fc.bound_ms(nbytes, ops)
+    row = {"phase": "kernel", "name": "fused_choice", "T": T, "N": N,
+           "R": R, "families": list(fam), "eligible_rows": n_elig, **res,
+           "ms": ms, "ms_readings": [r[0] for r in readings],
+           "call_ms": c_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "share_of_bound": b_ms / ms, "bytes": nbytes,
+           "fp32_instructions": ops,
+           "device_us_per_call": {k[:60]: us / 50
+                                  for k, us in kernels.items()}}
+    emit(row)
+    return row
+
+
+def phase_kernel(dev):
     T, N = KERNEL_SHAPE
     rows = []
     for share in (0.9, 0.1):
         for R in (2, 3):
             args = kernel_inputs(100 + R, T, N, R, dev, eligible=share)
-            n_elig = int((args[5] != 0).sum().item())
             for fam in FAMILY_SETS:
-                res = check_choice(args, fam, f"R={R} {fam} eligible "
-                                              f"{share}")
-                readings = sorted(
-                    (device_ms(lambda: fc.fused_choice(*args, fam))
-                     for _ in range(READINGS)), key=lambda r: r[0])
-                ms, kernels = readings[READINGS // 2]      # the median
-                c_ms = call_ms(lambda: fc.fused_choice(*args, fam))
-                plain_ms, _ = device_ms(
-                    lambda: fc.fused_choice_plain(*args, fam), calls=10)
-                nbytes, ops = fc.fused_choice_cost(T, N, R, fam, n_elig)
-                b_ms, b_by = fc.bound_ms(nbytes, ops)
-                row = {"phase": "kernel", "name": "fused_choice", "T": T,
-                       "N": N, "R": R, "families": list(fam),
-                       "eligible_rows": n_elig, **res,
-                       "ms": ms, "ms_readings": [r[0] for r in readings],
-                       "call_ms": c_ms, "plain_ms": plain_ms,
-                       "bound_ms": b_ms, "bound_by": b_by,
-                       "share_of_bound": b_ms / ms,
-                       "bytes": nbytes, "fp32_instructions": ops,
-                       "device_us_per_call": {
-                           k[:60]: us / 50 for k, us in kernels.items()}}
-                emit(row)
-                rows.append(row)
+                rows.append(kernel_row(args, fam, f"R={R} {fam} eligible "
+                                                  f"{share}"))
+    T, N, R, fam = HDRF_KERNEL
+    args = kernel_inputs(200, T, N, R, dev, variant="all_eligible")
+    rows.append(kernel_row(args, fam, "the hdrf shape, all rows eligible"))
     return rows
 
 
@@ -724,11 +767,16 @@ class StoreCluster:
     32 cpu / 128Gi / 110 pods, 3 queues weighted 1:2:3, gangs of
     ``tasks_per_job`` pods (cpu 1-3, memory 1-4Gi, minMember = size) — the
     cluster of bench.py's full_cycle(), built from the port's own models.
+    ``queues`` ([(name, weight, annotations)]), ``gpus`` (nvidia.com/gpu
+    per node), ``gpu_every`` (every such gang's pods ask for 1 GPU, as in
+    bench.py's make_problem), ``size_stride`` (gang k's cpu request is
+    1 + (k // size_stride) % 3) and ``conf`` shape other clusters.
     FakeBinder records the binds."""
 
     def __init__(self, dev, n_nodes: int, n_jobs: int = 0,
                  tasks_per_job: int = 10, cpu: str = "32", mem: str = "128Gi",
-                 shared_arena=None):
+                 shared_arena=None, queues=None, gpus: int = 0,
+                 gpu_every: int = 0, size_stride: int = 1, conf=None):
         from volcano_tpu_torch.cache import (
             FakeBinder, FakeEvictor, SchedulerCache,
         )
@@ -737,6 +785,8 @@ class StoreCluster:
         from volcano_tpu_torch.scheduler import Scheduler
 
         self.tpj = tasks_per_job
+        self.gpu_every = gpu_every
+        self.size_stride = size_stride
         self.store = ClusterStore()
         self.cache = SchedulerCache(self.store, device=dev)
         if shared_arena is not None:
@@ -746,23 +796,29 @@ class StoreCluster:
         self.cache.binder = FakeBinder()
         self.cache.evictor = FakeEvictor()
         self.cache.run()
-        for i in range(3):
-            self.store.apply("queues", Queue(name=f"q{i}",
-                                             spec=QueueSpec(weight=i + 1)))
-        self.alloc = {"cpu": float(cpu), "memory": _gib(mem), "pods": 110}
+        queues = queues or [(f"q{i}", i + 1, None) for i in range(3)]
+        self.queues = [name for name, _, _ in queues]
+        for name, weight, ann in queues:
+            self.store.apply("queues", Queue(name=name, annotations=ann or {},
+                                             spec=QueueSpec(weight=weight)))
+        self.alloc = {"cpu": float(cpu), "memory": _gib(mem), "pods": 110,
+                      "gpu": float(gpus)}
+        rl = {"cpu": cpu, "memory": mem, "pods": "110"}
+        if gpus:
+            rl["nvidia.com/gpu"] = str(gpus)
         for i in range(n_nodes):
-            rl = {"cpu": cpu, "memory": mem, "pods": "110"}
             self.store.create("nodes", Node(name=f"n{i}", allocatable=rl,
                                             capacity=dict(rl)))
         self.k = 0
         self.gangs: dict = {}    # "bench/j<k>-<i>" pod keys per gang
-        self.req: dict = {}      # pod key -> (cpu, memory bytes)
+        self.queue_of: dict = {}  # gang -> queue
+        self.req: dict = {}      # pod key -> (cpu, memory bytes, gpu)
         self.submit(n_jobs)
-        self.sched = Scheduler(self.cache)
+        self.sched = Scheduler(self.cache, scheduler_conf=conf)
 
     def submit(self, n_jobs: int, cpu_per_pod: int = 0) -> list:
-        """``n_jobs`` new gangs; ``cpu_per_pod`` overrides the cpu 1-3
-        request of their pods."""
+        """``n_jobs`` new gangs, round-robin over the queues;
+        ``cpu_per_pod`` overrides the cpu 1-3 request of their pods."""
         from volcano_tpu_torch.api.types import POD_GROUP_ANNOTATION
         from volcano_tpu_torch.models import (
             Pod, PodGroup, PodGroupPhase, PodGroupSpec, PodGroupStatus,
@@ -771,22 +827,29 @@ class StoreCluster:
         for _ in range(n_jobs):
             k = self.k
             self.k += 1
+            queue = self.queues[k % len(self.queues)]
             self.store.create("podgroups", PodGroup(
                 name=f"j{k}", namespace="bench",
-                spec=PodGroupSpec(min_member=self.tpj, queue=f"q{k % 3}"),
+                spec=PodGroupSpec(min_member=self.tpj, queue=queue),
                 status=PodGroupStatus(phase=PodGroupPhase.PENDING)))
+            gpu = 1 if self.gpu_every and k % self.gpu_every == 0 else 0
             keys = []
             for i in range(self.tpj):
-                cpu, mem = cpu_per_pod or 1 + k % 3, 1 + k % 4
+                cpu = cpu_per_pod or 1 + (k // self.size_stride) % 3
+                mem = 1 + k % 4
+                req = {"cpu": str(cpu), "memory": f"{mem}Gi"}
+                if gpu:
+                    req["nvidia.com/gpu"] = str(gpu)
                 self.store.create("pods", Pod(
                     name=f"j{k}-{i}", namespace="bench", phase="Pending",
                     annotations={POD_GROUP_ANNOTATION: f"j{k}"},
-                    containers=[{"requests": {"cpu": str(cpu),
-                                              "memory": f"{mem}Gi"}}]))
+                    containers=[{"requests": req}]))
                 key = f"bench/j{k}-{i}"
                 keys.append(key)
-                self.req[key] = (float(cpu), mem * float(2 ** 30))
+                self.req[key] = (float(cpu), mem * float(2 ** 30),
+                                 float(gpu))
             self.gangs[f"j{k}"] = keys
+            self.queue_of[f"j{k}"] = queue
             new.append(f"j{k}")
         return new
 
@@ -804,13 +867,15 @@ class StoreCluster:
         binds = self.cache.binder.binds
         before = len(binds)
         fc.fused_choice.launches = 0
+        fc.fused_choice.launches_hdrf_prefilter = 0
         t0 = time.perf_counter()
         self.sched.run_once()
         ms = (time.perf_counter() - t0) * 1e3
         launches = fc.fused_choice.launches
+        prefilter = fc.fused_choice.launches_hdrf_prefilter
         t = self.sched.last_cycle_timing
         out = {"cycle_ms": ms, "binds": len(binds) - before,
-               "launches": launches,
+               "launches": launches, "prefilter_launches": prefilter,
                **{k: t[k] for k in CYCLE_KEYS if k in t}}
         for k in ("flatten_mode", "flatten_fallback_reason", "order_mode",
                   "arena_bytes_shipped", "delta_chunks", "delta_fused",
@@ -833,12 +898,13 @@ class StoreCluster:
                                      f"{len(keys)}")
         load: dict = {}
         for key, node in binds.items():
-            c, m = self.req[key]
-            lc, lm, lp = load.get(node, (0.0, 0.0, 0))
-            load[node] = (lc + c, lm + m, lp + 1)
+            c, m, g = self.req[key]
+            lc, lm, lg, lp = load.get(node, (0.0, 0.0, 0.0, 0))
+            load[node] = (lc + c, lm + m, lg + g, lp + 1)
         a = self.alloc
-        over = [n for n, (c, m, p) in load.items()
-                if c > a["cpu"] or m > a["memory"] or p > a["pods"]]
+        over = [n for n, (c, m, g, p) in load.items()
+                if c > a["cpu"] or m > a["memory"] or g > a["gpu"]
+                or p > a["pods"]]
         if over:
             raise AssertionError(f"{what}: nodes over allocatable: "
                                  f"{over[:5]}")
@@ -912,30 +978,36 @@ class ReadbackProbe:
 
 class KernelAudit:
     """Wraps the solver's fused_choice for the cycles run inside it: the
-    outputs of every launch the cycle makes are held, bit for bit, against
+    outputs of every launch the cycle makes, the hdrf placeability
+    prefilter's included, are held, bit for bit, against
     fused_choice_plain on the same inputs (the plain call launches no
     kernel, so the wrapper's count is the cycle's own). Records each
-    launch's (T, N, R, families)."""
+    launch's (T, N, R, families, prefilter) and the seconds the checks
+    took."""
 
     def __enter__(self):
         from volcano_tpu_torch.ops import fused_choice as fc
         from volcano_tpu_torch.ops import solver
         self._solver, self._orig, self.shapes = solver, solver.fused_choice, []
+        self.seconds = 0.0
 
-        def audited(*args):
+        def audited(*args, **kw):
             before = fc.fused_choice.launches
-            got = self._orig(*args)
+            got = self._orig(*args, **kw)
+            t0 = time.perf_counter()
             want = fc.fused_choice_plain(*args)
             shape = (args[0].shape[0], args[1].shape[0], args[0].shape[1],
-                     tuple(args[-1]))
+                     tuple(args[-1]), bool(kw.get("prefilter")))
             if fc.fused_choice.launches != before + 1:
                 raise AssertionError(f"{shape}: the kernel was not launched")
             if not all(same_bits(g, w) for g, w in zip(got, want)):
                 raise AssertionError(
                     f"fused_choice disagrees with its plain version inside "
-                    f"the cycle at (T, N, R, families) = {shape}: best_idx "
-                    f"differs at {int((got[1] != want[1]).sum())} rows")
+                    f"the cycle at (T, N, R, families, prefilter) = {shape}: "
+                    f"best_idx differs at {int((got[1] != want[1]).sum())} "
+                    f"rows")
             self.shapes.append(shape)
+            self.seconds += time.perf_counter() - t0
             return got
 
         solver.fused_choice = audited
@@ -946,8 +1018,11 @@ class KernelAudit:
 
     def summary(self) -> dict:
         return {"launches_checked": len(self.shapes),
+                "prefilter_launches_checked": sum(s[4] for s in self.shapes),
+                "audit_ms": self.seconds * 1e3,
                 "shapes": sorted({f"T={t} N={n} R={r} {'+'.join(f)}"
-                                  for t, n, r, f in self.shapes})}
+                                  + (" prefilter" if p else "")
+                                  for t, n, r, f, p in self.shapes})}
 
 
 def event_cycles(c, cycles: int = 3) -> dict:
@@ -1131,38 +1206,77 @@ def phase_cycle(dev, scale=None) -> dict:
     return {"burst": burst, "steady": rows, "profile": prof}
 
 
-def profile_cycle(c, w) -> dict:
-    """One steady cycle under torch.profiler: device time by kernel, the
-    kernel launches, and the device's idle share of the unprofiled steady
-    cycle's wall time (the median of the three cycles before it)."""
-    from torch.autograd import DeviceType
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+
+
+def trace_profile(fn) -> dict:
+    """fn() once under torch.profiler, read from the trace the profiler
+    writes (its key_averages() takes minutes over the tens of thousands of
+    launches of a per-task loop or an hdrf cycle): the device time (the
+    kernels', copies' and sets' durations summed), the kernel launches and
+    the device time by kernel. The trace is written under the checkout's
+    build/ and deleted; a session that records no device event is taken
+    again, up to 3 times (seen now and then on the H100)."""
+    import os
     from torch.profiler import ProfilerActivity, profile
-    plain = []
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+    os.makedirs(build, exist_ok=True)
+    path = os.path.join(build, f"trace-{os.getpid()}.json")
     for _ in range(3):
-        c.submit(w)
-        plain.append(c.run_cycle()["cycle_ms"])
-    for _ in range(3):      # a cycle with no device events: one more wave
-        c.submit(w)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            row = c.run_cycle()
-        c.check("profiled steady cycle")
-        ka = prof.key_averages()
-        rows = sorted(((e.self_device_time_total, e.count, e.key)
-                       for e in ka if e.device_type == DeviceType.CUDA
-                       and e.self_device_time_total > 0), reverse=True)
-        if rows:
-            break
-    else:
-        raise AssertionError("the profiler saw no device time")
-    device_ms = sum(r[0] for r in rows) / 1e3
+            result = fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        try:
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        finally:
+            os.remove(path)
+        by_name: dict = {}
+        for e in events:
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+                n, us = by_name.get(e["name"], (0, 0.0))
+                by_name[e["name"]] = (n + 1, us + float(e.get("dur", 0.0)))
+        if by_name:
+            return {"result": result,
+                    "device_ms": sum(us for _, us in by_name.values()) / 1e3,
+                    "launches": sum(e.get("name") in LAUNCH_CALLS
+                                    for e in events),
+                    "by_name": by_name}
+    raise AssertionError("the profiler saw no device time in 3 sessions")
+
+
+def profile_cycle(c, w, regime: str = "steady", plain=None) -> dict:
+    """One steady cycle under torch.profiler: device time by kernel, the
+    kernel launches, and the device's idle share of the unprofiled steady
+    cycle's wall time (the median of ``plain``, the cycle times of earlier
+    cycles of the regime; by default, of three cycles run first). A
+    profile with no device events takes one more wave."""
+    if plain is None:
+        plain = []
+        for _ in range(3):
+            c.submit(w)
+            plain.append(c.run_cycle()["cycle_ms"])
+
+    def wave():
+        c.submit(w)
+        return c.run_cycle()
+
+    prof = trace_profile(wave)
+    row = prof["result"]
+    c.check("profiled steady cycle")
+    rows = sorted(((us, n, k) for k, (n, us) in prof["by_name"].items()),
+                  reverse=True)
+    device_ms = prof["device_ms"]
     wall = statistics.median(plain)
-    out = {"phase": "cycle_profile", "regime": "steady",
+    out = {"phase": "cycle_profile", "regime": regime,
            "wall_ms_unprofiled": wall, "wall_ms_profiled": row["cycle_ms"],
            "device_ms": device_ms, "device_idle_share": 1.0 - device_ms / wall,
-           "kernel_launches": sum(e.count for e in ka if e.key in (
-               "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")),
+           "kernel_launches": prof["launches"],
            "fused_choice_launches": row["launches"],
+           "prefilter_launches": row["prefilter_launches"],
            "fused_choice_device_ms": sum(
                us for us, _, k in rows if "fused_choice" in k) / 1e3,
            "device_kernels": [{"name": k[:80], "us": us, "count": cnt}
@@ -1172,7 +1286,464 @@ def profile_cycle(c, w) -> dict:
     return out
 
 
-PHASES = ("kernel", "edges", "small", "solve", "profile", "cycle")
+# -- hierarchical DRF (BASELINE config #5) ----------------------------------
+
+HDRF = dict(n_nodes=1000, n_jobs=500, tasks_per_job=10, cpu="8", mem="32Gi",
+            gpus=8, gpu_every=5, wave_jobs=5, steady_cycles=5)
+#: example/hierarchical-jobs.yaml's three leaf queues (name, weight,
+#: annotations)
+HDRF_QUEUES = [(name, 1, {"volcano.sh/hierarchy": path,
+                          "volcano.sh/hierarchy-weights": weights})
+               for name, path, weights in (
+                   ("root-eng-prod", "root/eng/prod", "1/2/8"),
+                   ("root-eng-dev", "root/eng/dev", "1/2/2"),
+                   ("root-sci", "root/sci", "1/2"))]
+#: each leaf's share of the cluster under the weights: eng and sci split
+#: the root 2:2, prod and dev split eng 8:2
+HDRF_SPLIT = {"root-eng-prod": 0.4, "root-eng-dev": 0.1, "root-sci": 0.5}
+#: the default conf with drf.enableHierarchy, less proportion: the conf
+#: loader rejects proportion beside the hierarchy (in both packages)
+HDRF_CONF = """
+actions: "enqueue, allocate, backfill"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+- plugins:
+  - name: drf
+    arguments:
+      drf.enableHierarchy: true
+  - name: predicates
+  - name: nodeorder
+"""
+
+
+def hdrf_cluster(dev, sc, shared_arena=None):
+    return StoreCluster(dev, sc["n_nodes"], sc["n_jobs"], sc["tasks_per_job"],
+                        cpu=sc["cpu"], mem=sc["mem"], gpus=sc["gpus"],
+                        gpu_every=sc["gpu_every"], size_stride=3,
+                        queues=HDRF_QUEUES,
+                        conf=HDRF_CONF, shared_arena=shared_arena)
+
+
+def queue_shares(c, n_nodes: int) -> dict:
+    """Per queue: the bound pods and the dominant share of the cluster
+    they hold (the largest of their cpu, memory and gpu shares), beside
+    the share the weights give."""
+    a = c.alloc
+    total = (a["cpu"] * n_nodes, a["memory"] * n_nodes, a["gpu"] * n_nodes)
+    held = {q: [0, 0.0, 0.0, 0.0] for q in c.queues}
+    for key in c.cache.binder.binds:
+        q = c.queue_of[key.split("/")[1].rsplit("-", 1)[0]]
+        h = held[q]
+        h[0] += 1
+        for d, v in enumerate(c.req[key]):
+            h[1 + d] += v
+    return {q: {"binds": h[0],
+                "share": max(v / t for v, t in zip(h[1:], total) if t),
+                "cpu_share": h[1] / total[0],
+                "split": HDRF_SPLIT.get(q)} for q, h in held.items()}
+
+
+def phase_hdrf(dev, scale=None) -> dict:
+    """Allocate with the drf hierarchy at BASELINE config #5's scale (8-cpu
+    nodes, so that demand is ~1.25x the cluster's cpu and the weighted
+    tree decides who binds; each queue's gangs take every cpu size, where
+    bench.py's 1 + k % 3 would tie a queue to one size): a warm-up burst,
+    a measured burst on a fresh identical cluster sharing the warm arena,
+    with every kernel launch of both call sites (the admission round and
+    the placeability prefilter) held against the plain version, then
+    steady cycles in which bound gangs finish and as many new ones
+    arrive."""
+    sc = dict(HDRF, **(scale or {}))
+    n = sc["n_nodes"]
+    warm = hdrf_cluster(dev, sc)
+    warm_row = warm.run_cycle()
+    warm.check("hdrf warm-up burst")
+    c = hdrf_cluster(dev, sc, shared_arena=warm.cache.device_cache)
+    del warm
+    with KernelAudit() as audit:
+        burst = c.run_cycle()
+    c.check("hdrf burst")
+    audited = audit.summary()
+    if burst["binds"] <= 0 or burst["prefilter_launches"] <= 0 \
+            or audited["launches_checked"] != burst["launches"] \
+            or audited["prefilter_launches_checked"] \
+            != burst["prefilter_launches"]:
+        raise AssertionError(f"hdrf burst: {burst}, audit {audited}")
+    shares = queue_shares(c, n)
+    # the weighted tree decides: the lightest leaf (eng/dev, 10% of the
+    # cluster) holds less than either heavier leaf
+    dev_share = shares["root-eng-dev"]["share"]
+    if not dev_share < min(shares["root-eng-prod"]["share"],
+                           shares["root-sci"]["share"]):
+        raise AssertionError(f"hdrf burst shares ignore the tree: {shares}")
+    emit({"phase": "hdrf", "regime": "burst", "nodes": n,
+          "pods": sc["n_jobs"] * sc["tasks_per_job"],
+          "warmup_cycle_ms": warm_row["cycle_ms"],
+          "cycle_ms_less_audit": burst["cycle_ms"] - audited["audit_ms"],
+          **burst, "queues": shares, "cycle_audit": audited})
+    rows = [burst]
+    w = sc["wave_jobs"]
+    for s in range(sc["steady_cycles"]):
+        binds = c.cache.binder.binds
+        done = [g for g, keys in c.gangs.items()
+                if all(k in binds for k in keys)][:w]
+        for g in done:
+            c.complete(g)
+        c.submit(w)
+        row = c.run_cycle()
+        c.check(f"hdrf steady cycle {s}")
+        if row["launches"] <= 0 or row["prefilter_launches"] <= 0:
+            raise AssertionError(f"hdrf steady cycle {s}: {row}")
+        emit({"phase": "hdrf", "regime": "steady", "cycle": s,
+              "finished_gangs": len(done), **row,
+              "queues": queue_shares(c, n)})
+        rows.append(row)
+    # one more wave under the profiler (not part of the counted run)
+    t0 = time.perf_counter()
+    prof = profile_cycle(c, w, regime="hdrf_steady",
+                         plain=[r["cycle_ms"] for r in rows[1:]])
+    emit({"phase": "hdrf_profile_seconds",
+          "seconds": time.perf_counter() - t0})
+    return {"rows": rows, "profile": prof}
+
+
+# -- preempt and reclaim (BASELINE config #4) --------------------------------
+
+EVICT = dict(n_nodes=200, cpu="16", mem="64Gi", low_pods=2000, gang=1000,
+             a_jobs=320, b_jobs=100, tasks_per_job=10)
+EVICT_CONF = """
+actions: "enqueue, allocate, preempt, reclaim, backfill"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+- plugins:
+  - name: drf
+  - name: predicates
+  - name: proportion
+  - name: nodeorder
+"""
+PRIORITY = {"high-priority": 100, "low-priority": 1}
+
+
+class PipelineRecorder:
+    """The session's pipelined tasks, read at its close (the cache's
+    decision-recorder seam)."""
+
+    def __init__(self):
+        from volcano_tpu_torch.api import TaskStatus
+        self.status = TaskStatus.PIPELINED
+        self.last = []
+
+    def observe_session(self, ssn) -> None:
+        self.last = sorted(
+            (f"{t.namespace}/{t.name}", t.node_name)
+            for job in ssn.jobs.values()
+            for t in job.task_status_index.get(self.status, {}).values())
+
+
+class EvictAudit:
+    """Wraps the port's two eviction solves for the cycles run inside it:
+    each call's inputs, result and host time (synchronised). check() then
+    holds each result against the same solve on CPU tensors and re-runs
+    it on the card under the profiler for its device time
+    (trace_profile)."""
+
+    NAMES = ("solve_evict", "solve_evict_uniform")
+
+    def __enter__(self):
+        from volcano_tpu_torch.ops import evict
+        self._mod, self.calls = evict, []
+        self._real = {name: getattr(evict, name) for name in self.NAMES}
+        for name in self.NAMES:
+            def wrapped(arrays, victims, score_params, _name=name, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = self._real[_name](arrays, victims, score_params, **kw)
+                torch.cuda.synchronize()
+                self.calls.append((_name, arrays, victims, score_params, kw,
+                                   res, (time.perf_counter() - t0) * 1e3))
+                return res
+            setattr(evict, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name in self.NAMES:
+            setattr(self._mod, name, self._real[name])
+
+    def check(self) -> list:
+        rows = []
+        for name, arrays, victims, params, kw, res, host_ms in self.calls:
+            real = self._real[name]
+            cpu = real(arrays, victims, params, **dict(kw, device="cpu"))
+            for k in ("assigned", "evicted_by", "job_placed"):
+                if not torch.equal(getattr(res, k).cpu(), getattr(cpu, k)):
+                    raise AssertionError(f"{name}: {k} differs card vs the "
+                                         f"port's own solve on the host")
+            dev_ms = trace_profile(
+                lambda: real(arrays, victims, params, **kw))["device_ms"]
+            rows.append({"solve": name,
+                         "T": int(arrays["task_init_req"].shape[0]),
+                         "N": int(arrays["node_idle"].shape[0]),
+                         "J": int(arrays["job_min"].shape[0]),
+                         "V": int(victims["v_req"].shape[0]),
+                         "host_ms": host_ms, "device_ms": dev_ms,
+                         "placed": int((res.assigned >= 0).sum().item()),
+                         "evicted": int((res.evicted_by >= 0).sum().item()),
+                         "equal_to_host_solve": True})
+        return rows
+
+
+class EvictCluster:
+    """The port's Scheduler under EVICT_CONF over ``n_nodes`` nodes, with
+    the priority classes high-priority (100) and low-priority (1). Running
+    pods are created on their nodes (as a kubelet reports them), claimers
+    pending; FakeBinder and FakeEvictor record the binds and evictions."""
+
+    def __init__(self, dev, n_nodes: int, cpu: str, mem: str, queues):
+        from volcano_tpu_torch.cache import (
+            FakeBinder, FakeEvictor, SchedulerCache,
+        )
+        from volcano_tpu_torch.client import ClusterStore
+        from volcano_tpu_torch.models import (
+            Node, PriorityClass, Queue, QueueSpec,
+        )
+        from volcano_tpu_torch.scheduler import Scheduler
+
+        self.store = ClusterStore()
+        self.cache = SchedulerCache(self.store, device=dev)
+        self.cache.binder = FakeBinder()
+        self.cache.evictor = FakeEvictor()
+        self.recorder = self.cache.decision_recorder = PipelineRecorder()
+        self.cache.run()
+        for name, value in PRIORITY.items():
+            self.store.create("priorityclasses", PriorityClass(name, value))
+        self.reclaimable = {}
+        for name, reclaimable in queues:
+            self.store.apply("queues", Queue(name=name, spec=QueueSpec(
+                weight=1, reclaimable=reclaimable)))
+            self.reclaimable[name] = reclaimable is not False
+        rl = {"cpu": cpu, "memory": mem, "pods": "110"}
+        self.alloc = (float(cpu), _gib(mem), 110.0)
+        for i in range(n_nodes):
+            self.store.create("nodes", Node(name=f"n{i}", allocatable=rl,
+                                            capacity=dict(rl)))
+        self.pods: dict = {}    # key -> (job, cpu, memory bytes, node)
+        self.jobs: dict = {}    # job -> (queue, priority, min_member)
+        self.evicted: set = set()
+        self.sched = Scheduler(self.cache, scheduler_conf=EVICT_CONF)
+
+    def job(self, name: str, queue: str, prio: str, min_member: int,
+            n_pods: int, cpu: int, mem_gi: int, nodes=None) -> None:
+        """A job of ``n_pods`` pods: Running on ``nodes`` (one each) when
+        given, else Pending."""
+        from volcano_tpu_torch.api.types import POD_GROUP_ANNOTATION
+        from volcano_tpu_torch.models import (
+            Pod, PodGroup, PodGroupPhase, PodGroupSpec, PodGroupStatus,
+        )
+        phase = PodGroupPhase.RUNNING if nodes else PodGroupPhase.PENDING
+        self.store.create("podgroups", PodGroup(
+            name=name, namespace="ev",
+            spec=PodGroupSpec(min_member=min_member, queue=queue,
+                              priority_class_name=prio),
+            status=PodGroupStatus(phase=phase)))
+        self.jobs[name] = (queue, PRIORITY[prio], min_member)
+        for i in range(n_pods):
+            node = nodes[i] if nodes else ""
+            self.store.create("pods", Pod(
+                name=f"{name}-{i}", namespace="ev", node_name=node,
+                phase="Running" if node else "Pending",
+                annotations={POD_GROUP_ANNOTATION: name},
+                containers=[{"requests": {"cpu": str(cpu),
+                                          "memory": f"{mem_gi}Gi"}}]))
+            self.pods[f"ev/{name}-{i}"] = (name, float(cpu),
+                                           mem_gi * float(2 ** 30), node)
+
+    def cycle(self) -> dict:
+        """One Scheduler.run_once (the kernel's counts set to 0 just
+        before, read just after): its evictions, pipelines and binds."""
+        from volcano_tpu_torch.ops import fused_choice as fc
+        binds, evicts = self.cache.binder.binds, self.cache.evictor.evicts
+        before, n_ev = dict(binds), len(evicts)
+        fc.fused_choice.launches = 0
+        fc.fused_choice.launches_hdrf_prefilter = 0
+        t0 = time.perf_counter()
+        self.sched.run_once()
+        ms = (time.perf_counter() - t0) * 1e3
+        t = self.sched.last_cycle_timing
+        errors = [k for k in t if k.endswith("_error")]
+        if errors or t.get("host_fallback"):
+            raise AssertionError(f"the cycle left the device path: {errors}")
+        return {"cycle_ms": ms, "evicts": list(evicts[n_ev:]),
+                "pipelined": list(self.recorder.last),
+                "binds": sorted(k for k, v in binds.items()
+                                if before.get(k) != v),
+                "launches": fc.fused_choice.launches,
+                "timing": {k: v for k, v in t.items()
+                           if isinstance(v, float)}}
+
+    def kubelet(self, evicts) -> None:
+        """The evicted pods terminate: deleted from the store."""
+        for key in evicts:
+            ns, name = key.split("/")
+            self.store.delete("pods", name, ns)
+        self.evicted.update(evicts)
+
+    def check(self, what: str, row: dict, preempt: bool) -> int:
+        """Every evicted victim was allowed (queue scope and a lower
+        priority than every claimer: the gang plugin's victim rule in this
+        version compares priorities only, so a victim job may drop below
+        its minMember) and no node's future idle (allocatable - running
+        not evicted - pipelined) is below zero. Returns how many victim
+        jobs were left below their minMember."""
+        evicts = set(row["evicts"])
+        claimers = {self.pods[k][0] for k, _ in row["pipelined"]}
+        for key in evicts:
+            vq, vprio, _ = self.jobs[self.pods[key][0]]
+            for cj in claimers:
+                cq, cprio, _ = self.jobs[cj]
+                scoped = (vq == cq) if preempt else \
+                    (vq != cq and self.reclaimable[vq])
+                if not scoped or vprio >= cprio:
+                    raise AssertionError(f"{what}: victim {key} not allowed "
+                                         f"for claimer {cj}")
+        gone = self.evicted | evicts
+        running: dict = {}
+        load: dict = {}
+        for key, (job, cpu, mem, node) in self.pods.items():
+            if node and key not in gone:
+                running[job] = running.get(job, 0) + 1
+                lc, lm, lp = load.get(node, (0.0, 0.0, 0.0))
+                load[node] = (lc + cpu, lm + mem, lp + 1)
+        below_min = sum(running.get(job, 0) < self.jobs[job][2]
+                        for job in {self.pods[k][0] for k in evicts})
+        for key, node in row["pipelined"]:
+            _, cpu, mem, _ = self.pods[key]
+            lc, lm, lp = load.get(node, (0.0, 0.0, 0.0))
+            load[node] = (lc + cpu, lm + mem, lp + 1)
+        over = [n for n, v in load.items()
+                if any(x > a for x, a in zip(v, self.alloc))]
+        if over:
+            raise AssertionError(f"{what}: future idle below zero on "
+                                 f"{over[:5]}")
+        return below_min
+
+
+def evict_part(c, part: str, claimer_jobs) -> dict:
+    """One eviction cycle with its solves audited, the checks, then the
+    victims deleted and the next cycle binding the claimers."""
+    preempt = part == "preempt"
+    with EvictAudit() as audit:
+        row = c.cycle()
+    below_min = c.check(part, row, preempt)
+    claimers = [k for k, v in c.pods.items() if v[0] in claimer_jobs]
+    pipelined = [k for k, _ in row["pipelined"]]
+    if not row["evicts"] or not pipelined:
+        raise AssertionError(f"{part}: {len(row['evicts'])} evictions, "
+                             f"{len(pipelined)} pipelines")
+    if preempt and len(pipelined) != len(claimers):
+        raise AssertionError(f"preempt pipelined {len(pipelined)} of the "
+                             f"gang's {len(claimers)} pods")
+    t0 = time.perf_counter()
+    solves = audit.check()
+    check_s = time.perf_counter() - t0
+    route = "solve_evict_uniform" if preempt else "solve_evict"
+    if not any(s["solve"] == route and s["evicted"] for s in solves):
+        raise AssertionError(f"{part}: no eviction through {route}")
+    c.kubelet(row["evicts"])
+    nxt = c.cycle()
+    claimed = set(claimers)
+    bound = [k for k in nxt["binds"] if k in claimed]
+    if len(bound) < len(pipelined):
+        raise AssertionError(f"{part}: {len(bound)} claimers bound after "
+                             f"{len(pipelined)} pipelined")
+    t = row["timing"]
+    return {"phase": "evict", "part": part, "cycle_ms": row["cycle_ms"],
+            "evictions": len(row["evicts"]), "pipelines": len(pipelined),
+            "victim_jobs": len({c.pods[k][0] for k in row["evicts"]}),
+            "victim_jobs_below_min_member": below_min,
+            "claimer_pods": len(claimers), "solves": solves,
+            f"{part}_solve_ms": t.get(f"{part}_solve_ms"),
+            f"{part}_ms": t.get(f"{part}_ms"), "launches": row["launches"],
+            "timing": t, "next_cycle_ms": nxt["cycle_ms"],
+            "next_cycle_claimer_binds": len(bound),
+            "next_cycle_launches": nxt["launches"],
+            "audit_check_seconds": check_s}
+
+
+def phase_evict(dev, scale=None) -> list:
+    """Preempt at BASELINE config #4's scale (bench.py config4_preempt: a
+    low-priority job of 2000 running pods, 10 a node on 200 nodes of 16
+    cpu, and a high-priority gang of 1000 two-cpu pods in the same queue;
+    uniform claimers, so solve_evict_uniform), then reclaim on the same
+    nodes (queue a, reclaimable, fills them with 320 low-priority jobs of
+    10 one-cpu pods; queue b submits 100 high-priority jobs of 10 two-cpu
+    pods; per-task solve_evict)."""
+    sc = dict(EVICT, **(scale or {}))
+    n, tpj = sc["n_nodes"], sc["tasks_per_job"]
+    c = EvictCluster(dev, n, sc["cpu"], sc["mem"], [("q0", None)])
+    c.job("low", "q0", "low-priority", 1, sc["low_pods"], 1, 2,
+          nodes=[f"n{i % n}" for i in range(sc["low_pods"])])
+    c.job("high", "q0", "high-priority", sc["gang"], sc["gang"], 2, 4)
+    rows = [evict_part(c, "preempt", {"high"})]
+    emit(rows[-1])
+    c = EvictCluster(dev, n, sc["cpu"], sc["mem"], [("a", True), ("b", None)])
+    for j in range(sc["a_jobs"]):
+        c.job(f"a{j}", "a", "low-priority", 1, tpj, 1, 2,
+              nodes=[f"n{(j * tpj + i) % n}" for i in range(tpj)])
+    for j in range(sc["b_jobs"]):
+        c.job(f"b{j}", "b", "high-priority", 1, tpj, 2, 4)
+    rows.append(evict_part(c, "reclaim",
+                           {f"b{j}" for j in range(sc["b_jobs"])}))
+    emit(rows[-1])
+    return rows
+
+
+# -- sequential allocate (BASELINE config #2's scale) ------------------------
+
+SEQUENTIAL_CONF = """
+actions: "enqueue, allocate, backfill"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+- plugins:
+  - name: predicates
+  - name: binpack
+configurations:
+- name: allocate
+  arguments:
+    mode: sequential
+"""
+
+
+def phase_sequential(dev, n_nodes: int = 50, n_jobs: int = 50) -> dict:
+    """One cycle with allocate in ``mode: sequential`` (the parity oracle,
+    one device step per task) on the card and the same cycle on the host:
+    the same pods bound to the same nodes."""
+    runs = []
+    for where in (dev, "cpu"):
+        c = StoreCluster(where, n_nodes, n_jobs, 10, conf=SEQUENTIAL_CONF)
+        row = c.run_cycle()
+        c.check(f"sequential cycle on {where}")
+        runs.append((sorted(c.cache.binder.binds.items()), row))
+    (card, row), (host, host_row) = runs
+    if not card or card != host:
+        raise AssertionError(f"sequential: {len(card)} binds on the card, "
+                             f"{len(host)} on the host, or they differ")
+    out = {"phase": "sequential", "nodes": n_nodes, "pods": n_jobs * 10,
+           "binds": len(card), "cycle_ms": row["cycle_ms"],
+           "solve_ms": row.get("solve_ms"), "host_cycle_ms": host_row[
+               "cycle_ms"], "host_solve_ms": host_row.get("solve_ms"),
+           "identical_to_host": True}
+    emit(out)
+    return out
+
+
+PHASES = ("kernel", "edges", "small", "solve", "profile", "cycle", "hdrf",
+          "evict", "sequential")
 
 
 def main() -> int:
@@ -1194,31 +1765,48 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     info = phase_device()
-    phase_build()
-    krows = phase_kernel(dev) if "kernel" in phases else None
-    if "edges" in phases:
-        phase_edges(dev)
-    if "small" in phases:
-        phase_small(dev)
-    main_launches = phase_solve(dev)[1] if "solve" in phases else None
-    if "profile" in phases:
-        phase_profile(dev)
-    cyc = phase_cycle(dev) if "cycle" in phases else None
+    seconds = {}
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    run("build", phase_build)
+    out = {name: run(name, fn, dev) for name, fn in (
+        ("kernel", phase_kernel), ("edges", phase_edges),
+        ("small", phase_small), ("solve", phase_solve),
+        ("profile", phase_profile), ("cycle", phase_cycle),
+        ("hdrf", phase_hdrf), ("evict", phase_evict),
+        ("sequential", phase_sequential)) if name in phases}
+    emit({"phase": "seconds", **seconds})
     if set(phases) != set(PHASES):
         return 0
+    krows, cyc, hdrf, evict = (out[k] for k in ("kernel", "cycle", "hdrf",
+                                                "evict"))
+    main_launches = out["solve"][1]
     head = next(r for r in krows if r["R"] == 2 and r["eligible_rows"]
                 > 0.5 * r["T"] and r["families"] == ["binpack"])
+    # the main path: the scheduling cycle's measured burst and timed
+    # steady cycles, the hdrf cycles and the eviction cycles, each counted
+    # from 0 (the sequential mode launches no kernel)
+    cycle_rows = [cyc["burst"]] + cyc["steady"]
+    evict_launches = sum(r["launches"] + r["next_cycle_launches"]
+                         for r in evict)
     emit({"kernels": [{
         "name": "fused_choice", "route": "cuda",
         "source": "volcano_tpu_torch/csrc/fused_choice.cu",
         "replaces": "volcano_tpu/ops/pallas_kernels.py:201",
-        # the main path is the scheduling cycle: the measured burst and
-        # the timed steady cycles, each counted from 0
-        "launches": cyc["burst"]["launches"]
-        + sum(r["launches"] for r in cyc["steady"]),
+        "launches": sum(r["launches"] for r in cycle_rows + hdrf["rows"])
+        + evict_launches,
         "launches_per_burst_cycle": cyc["burst"]["launches"],
         "launches_per_steady_cycle": statistics.median(
             r["launches"] for r in cyc["steady"]),
+        "launches_per_hdrf_cycle": [r["launches"] for r in hdrf["rows"]],
+        "launches_hdrf_prefilter": sum(r["prefilter_launches"]
+                                       for r in hdrf["rows"]),
+        "launches_evict_cycles": evict_launches,
         "launches_headline_solve": main_launches,
         "max_abs_err": max(r["max_abs_err"] for r in krows),
         "ms": head["ms"], "plain_ms": head["plain_ms"],

@@ -49,6 +49,50 @@ def test_packed_bit_identical_to_jax(seed, kw):
     assert ti.tobytes() == ji.tobytes()
 
 
+@pytest.mark.parametrize("tree", ["example", "ragged"])
+def test_packed_with_hdrf_bit_identical_to_jax(tree):
+    """With the hdrf tree built the layout carries its eight arrays, and
+    the bytes still equal the JAX package's; without it they are absent."""
+    from test_torch_hdrf import EXAMPLE, RAGGED, hdrf_flatten
+    t = {"example": EXAMPLE, "ragged": RAGGED}[tree]
+    jf, ji, jl = hdrf_flatten("jax", 8, t, n_queues=len(t)).packed()
+    arr = hdrf_flatten("torch", 8, t, n_queues=len(t))
+    tf, ti, tl = arr.packed()
+    assert tl == jl
+    assert sum(k.startswith("hdrf_") for k, *_ in tl) == 8
+    assert tf.tobytes() == jf.tobytes()
+    assert ti.tobytes() == ji.tobytes()
+    arr.hdrf_parent = None
+    assert not any(k.startswith("hdrf_") for k, *_ in arr.packed()[2])
+
+
+def test_hdrf_layout_change_reships_the_arena():
+    """The first hdrf session after a plain one changes the packed layout:
+    the arena ships whole (never a scatter into the stale layout) and the
+    solve equals a cold one; the next hdrf session is a delta again."""
+    from test_torch_hdrf import EXAMPLE, hdrf_flatten
+    arr = hdrf_flatten("torch", 9, EXAMPLE, n_queues=3, n_nodes=10,
+                       n_jobs=6)
+    params = params_dict(arr, binpack=1.0)
+    flags = dict(FLAGS, use_drf_order=True, use_hdrf_order=True)
+    tree = {k: getattr(arr, k) for k in arr.numpy_dict()
+            if k.startswith("hdrf_")}
+    dc = PackedDeviceCache(device="cpu")
+    arr.hdrf_parent = None
+    _session(dc, arr, params, dict(FLAGS, use_drf_order=True))
+    for k, v in tree.items():
+        setattr(arr, k, v)
+    got = _session(dc, arr, params, flags)
+    assert dc.last_full_ship and dc.full_ships == 2
+    cold = ts.solve_allocate(arr.numpy_dict(), params, device="cpu", **flags)
+    np.testing.assert_array_equal(got, cold.compact.numpy())
+    arr.node_idle[0, 0] -= 1000.0
+    got = _session(dc, arr, params, flags)
+    assert not dc.last_full_ship and dc.last_shipped_chunks >= 1
+    cold = ts.solve_allocate(arr.numpy_dict(), params, device="cpu", **flags)
+    np.testing.assert_array_equal(got, cold.compact.numpy())
+
+
 def test_unpack_views_round_trip():
     arr = flatten("torch", cluster_spec(2))
     fbuf, ibuf, layout = arr.packed()

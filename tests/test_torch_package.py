@@ -110,7 +110,8 @@ def test_solver_option_errors():
     d, p = arr.numpy_dict(), params_dict(arr, binpack=1.0)
     with pytest.raises(ValueError, match="CUDA"):
         ts.solve_allocate(d, p, device="cpu", fused="on")
-    with pytest.raises(NotImplementedError, match="hdrf"):
+    # the hierarchy needs its tree arrays (ops.hdrf.build_hdrf)
+    with pytest.raises(ValueError, match="hdrf"):
         ts.solve_allocate(d, p, device="cpu", use_drf_order=True,
                           use_hdrf_order=True)
     with pytest.raises(ValueError, match="fused"):

@@ -19,8 +19,12 @@ the Statement replay) against the JAX package's Scheduler.
   ``device="cpu"`` raises.
 
 Tests marked ``cuda`` run the cycle on the card (they skip without a
-GPU): the async pinned readback against a blocking copy, and a small
-churned cluster card vs host. This module imports JAX only inside the
+GPU): the async pinned readback against a blocking copy, a small
+churned cluster card vs host, and small versions of chip_smoke.py's
+hdrf, evict and sequential phases (every kernel launch of an hdrf burst,
+the placeability prefilter's included, held against the plain version;
+each eviction solve against the same solve on CPU tensors; the
+sequential cycle's binds against the host's). This module imports JAX only inside the
 tests that need it, so on a GPU host without JAX they run with
 ``python -m pytest --noconftest -m cuda tests/test_torch_scheduler.py``.
 """
@@ -128,16 +132,19 @@ def test_device_failure_on_a_cuda_arena_is_not_absorbed(failure):
         assert c.cache.device_cache.invalidations == 1
 
 
+#: confs naming an action, a mode or an option, with the ROADMAP item that
+#: ports it, or None once ported (preempt and reclaim with A6, the
+#: sequential mode and the drf hierarchy with A2)
 UNPORTED_CONFS = {
-    "preempt": ('actions: "enqueue, preempt, allocate"', "A6"),
-    "reclaim": ('actions: "enqueue, reclaim, allocate, backfill"', "A6"),
+    "preempt": ('actions: "enqueue, preempt, allocate"', None),
+    "reclaim": ('actions: "enqueue, reclaim, allocate, backfill"', None),
     "reschedule": ('actions: "allocate, reschedule"', "A8"),
     "sequential": ('actions: "allocate"\nconfigurations:\n- name: allocate\n'
-                   '  arguments:\n    mode: sequential', "A2"),
+                   '  arguments:\n    mode: sequential', None),
     "sharded": ('actions: "allocate"\nconfigurations:\n- name: allocate\n'
                 '  arguments:\n    mode: sharded', "A7"),
     "hdrf": ('actions: "allocate"\ntiers:\n- plugins:\n  - name: drf\n'
-             '    arguments:\n      drf.enableHierarchy: true', "A2"),
+             '    arguments:\n      drf.enableHierarchy: true', None),
 }
 
 
@@ -149,8 +156,15 @@ def _cpu_cache():
 
 @pytest.mark.parametrize("name", sorted(UNPORTED_CONFS))
 def test_unported_conf_raises_at_loading(name):
+    """An unported conf raises at loading, naming its item; a ported one
+    loads with every action it names."""
     Scheduler = pkg_mod("torch", "scheduler").Scheduler
     text, item = UNPORTED_CONFS[name]
+    if item is None:
+        sched = Scheduler(_cpu_cache(), scheduler_conf=text)
+        names = [a.name() for a in sched.actions]
+        assert names and (name in names or name in ("sequential", "hdrf"))
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         Scheduler(_cpu_cache(), scheduler_conf=text)
 
@@ -166,39 +180,33 @@ def test_unported_scheduler_options_raise(kw, item):
 
 
 def test_unported_mode_never_reaches_the_host_fallback(tmp_path):
-    """A mode or option that reaches the allocate action anyway (a
-    session opened with its own configurations, a drf hierarchy in the
-    session's solver options) raises before the breaker's scope: nothing
-    binds, no device failure is counted, no host fallback runs."""
+    """A mode that reaches an action anyway (a session opened with its own
+    configurations) raises before the breaker's scope: nothing binds, no
+    device failure is counted, no host fallback runs."""
     fw = pkg_mod("torch", "framework")
     conf_mod = pkg_mod("torch", "conf")
     c = SeededCluster("torch", 29, n_nodes=6)
     c.submit_gangs(3)
-    allocate = fw.get_action("allocate")
-    for item, configurations, hierarchy in (
-            ("A2", [conf_mod.Configuration(
-                name="allocate", arguments={"mode": "sequential"})], False),
-            ("A7", [conf_mod.Configuration(
-                name="allocate", arguments={"mode": "sharded"})], False),
-            ("A2", [], True)):
-        ssn = fw.open_session(c.cache, c.sched.tiers, configurations)
+    for action in ("allocate", "preempt", "reclaim"):
+        ssn = fw.open_session(c.cache, c.sched.tiers, [
+            conf_mod.Configuration(name=action,
+                                   arguments={"mode": "sharded"})])
         try:
-            if hierarchy:
-                ssn.solver_options["drf_order"]["hierarchy"] = True
-            with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-                allocate.execute(ssn)
+            with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+                fw.get_action(action).execute(ssn)
             assert "host_fallback" not in ssn.solver_options.get(
                 "timing", {})
         finally:
             fw.close_session(ssn)
     assert c.cache.binder.binds == {}
+    assert c.cache.evictor.evicts == []
     assert c.cache.breaker._consecutive_failures == 0
     assert c.cache.breaker.fallback_cycles == 0
     # a hot reload to an unported conf raises out of the cycle
     path = tmp_path / "conf.yaml"
-    path.write_text(UNPORTED_CONFS["hdrf"][0])
+    path.write_text(UNPORTED_CONFS["sharded"][0])
     c.sched.conf_path = str(path)
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         c.sched.run_once()
     assert c.cache.binder.binds == {}
 
@@ -246,4 +254,30 @@ def test_async_readback_matches_blocking_copy_on_card(cuda_device):
 def test_small_cycle_card_equals_host(cuda_device):
     import chip_smoke
     out = chip_smoke.small_cycle_pair(cuda_device)
+    assert out["identical_to_host"] and out["binds"] > 0
+
+
+@pytest.mark.cuda
+def test_hdrf_cycles_on_card(cuda_device):
+    import chip_smoke
+    out = chip_smoke.phase_hdrf(cuda_device, dict(
+        n_nodes=60, n_jobs=30, wave_jobs=2, steady_cycles=1))
+    burst = out["rows"][0]
+    assert burst["binds"] > 0 and burst["prefilter_launches"] > 0
+
+
+@pytest.mark.cuda
+def test_preempt_and_reclaim_on_card(cuda_device):
+    import chip_smoke
+    rows = chip_smoke.phase_evict(cuda_device, dict(
+        n_nodes=10, low_pods=100, gang=50, a_jobs=16, b_jobs=5))
+    assert [r["part"] for r in rows] == ["preempt", "reclaim"]
+    assert all(r["evictions"] > 0 and r["next_cycle_claimer_binds"] > 0
+               for r in rows)
+
+
+@pytest.mark.cuda
+def test_sequential_cycle_card_equals_host(cuda_device):
+    import chip_smoke
+    out = chip_smoke.phase_sequential(cuda_device, n_nodes=10, n_jobs=10)
     assert out["identical_to_host"] and out["binds"] > 0

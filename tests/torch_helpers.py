@@ -67,8 +67,18 @@ def build_pod_group(models, name: str, namespace: str, min_member: int,
             phase=phase or models.PodGroupPhase.PENDING))
 
 
-def build_queue(models, name: str, weight: int = 1):
-    return models.Queue(name=name, spec=models.QueueSpec(weight=weight))
+def build_queue(models, name: str, weight: int = 1,
+                annotations: Optional[Dict[str, str]] = None,
+                reclaimable: Optional[bool] = None):
+    return models.Queue(name=name, annotations=annotations or {},
+                        spec=models.QueueSpec(weight=weight,
+                                              reclaimable=reclaimable))
+
+
+def hierarchy_annotations(path: str, weights: str) -> Dict[str, str]:
+    """The drf hierarchy's queue annotations (hdrf)."""
+    return {"volcano.sh/hierarchy": path,
+            "volcano.sh/hierarchy-weights": weights}
 
 
 class SeededCluster:
@@ -77,7 +87,7 @@ class SeededCluster:
     def __init__(self, pkg: str, seed: int, n_nodes: int = 12,
                  n_queues: int = 3, conf: Optional[str] = None,
                  device="cpu", node_cpu: int = 16, node_mem_gi: int = 64,
-                 zones: int = 0):
+                 zones: int = 0, hierarchy=None):
         self.pkg = pkg
         self.models = pkg_mod(pkg, "models")
         self.ann_key = pkg_mod(pkg, "api").POD_GROUP_ANNOTATION
@@ -91,8 +101,13 @@ class SeededCluster:
         self.cache.evictor = cache_mod.FakeEvictor()
         self.cache.run()
         m = self.models
+        # hierarchy: per queue (path, weights) annotations for the drf
+        # hierarchy (hdrf), cycled over the queues
         for q in range(n_queues):
-            self.store.apply("queues", build_queue(m, f"q{q}", weight=q + 1))
+            ann = (hierarchy_annotations(*hierarchy[q % len(hierarchy)])
+                   if hierarchy else None)
+            self.store.apply("queues", build_queue(m, f"q{q}", weight=q + 1,
+                                                   annotations=ann))
         for i in range(n_nodes):
             labels = {"zone": f"z{i % zones}"} if zones else {}
             self.store.create("nodes", build_node(

@@ -203,7 +203,7 @@ class AllocateAction(Action):
     # solver mode
     # ------------------------------------------------------------------
 
-    def _execute_solver(self, ssn) -> None:
+    def _execute_solver(self, ssn, sequential: bool = False) -> None:
         import time as _time
 
         from ..ops import flatten_snapshot, solve_allocate
@@ -301,7 +301,7 @@ class AllocateAction(Action):
         # static order only when a preceding provider registered no sort
         # key.
         drf_opts = ssn.solver_options.get("drf_order")
-        use_drf_order = bool(drf_opts)
+        use_drf_order = bool(drf_opts) and not sequential
         if use_drf_order:
             providers = [name for _, name, _
                          in ssn._tier_fns("job_order_fns")]
@@ -326,6 +326,7 @@ class AllocateAction(Action):
                             rank_val += 1
                             prev = keys[j]
                         arr.job_drf_prerank[j] = rank_val
+        use_hdrf_order = False
         if use_drf_order:
             attrs = drf_opts["job_attrs"]
             for j, job in enumerate(arr.jobs_list):
@@ -334,6 +335,14 @@ class AllocateAction(Action):
                     arr.job_drf_allocated[j] = \
                         attr.allocated.to_vector(arr.vocab)
             arr.drf_total = drf_opts["total"].to_vector(arr.vocab)
+            if drf_opts.get("hierarchy"):
+                # the queue-path tree as arrays (ops.hdrf): their presence
+                # changes the packed layout, so the arena re-ships whole
+                # on the first hdrf session after a plain one
+                from ..ops.hdrf import build_hdrf
+                build_hdrf(arr, ssn.queues, attrs,
+                           drf_opts["total_allocated"])
+                use_hdrf_order = True
 
         timing["flatten_ms"] = (_time.perf_counter() - t0) * 1e3
         t0 = _time.perf_counter()
@@ -348,6 +357,7 @@ class AllocateAction(Action):
         solve_kw = dict(herd_mode=herd, score_families=families,
                         use_queue_cap=use_queue_cap,
                         use_drf_order=use_drf_order,
+                        use_hdrf_order=use_hdrf_order,
                         work_conserving=work_conserving)
         try:
             # device-path circuit-breaker scope: anything that throws out
@@ -356,7 +366,16 @@ class AllocateAction(Action):
             # through the host oracle on a CPU arena and re-raises on a
             # CUDA one (_device_fault_fallback)
             faults.fire("solver_dispatch")
-            if dc is not None:
+            if sequential:
+                # the parity oracle: one device step per task, off the
+                # flatten's host arrays (not the resident arena)
+                from ..ops.solver import solve_allocate_sequential
+                dev = getattr(ssn.cache, "device", None)
+                res = solve_allocate_sequential(
+                    arr.numpy_dict(), params, score_families=families,
+                    use_queue_cap=use_queue_cap,
+                    work_conserving=work_conserving, device=dev)
+            elif dc is not None:
                 # device-resident buffers: the dirty-chunk scatter runs at
                 # the head of the solve (solve_allocate_delta), so a
                 # session costs one scatter + solve + one compact readback.
@@ -752,12 +771,6 @@ class AllocateAction(Action):
 
     def execute(self, ssn) -> None:
         mode = self.resolve_mode(ssn)
-        drf_opts = ssn.solver_options.get("drf_order")
-        if mode != "host" and drf_opts and drf_opts.get("hierarchy"):
-            # raised before the breaker's scope: an unported option must
-            # never degrade into a silent host fallback
-            raise NotImplementedError(
-                "drf with hierarchy (hdrf) is not ported yet (ROADMAP A2)")
         breaker = getattr(ssn, "breaker", None)
         if mode != "host" and breaker is not None and not breaker.allow():
             # device path circuit-broken: go straight to the host oracle
@@ -776,7 +789,7 @@ class AllocateAction(Action):
         if mode == "host":
             self._execute_host(ssn)
             return
-        self._execute_solver(ssn)
+        self._execute_solver(ssn, sequential=(mode == "sequential"))
         host_only = ssn.solver_options.get("host_only_jobs")
         if host_only:
             # host-only jobs ranked after some device-path job place via

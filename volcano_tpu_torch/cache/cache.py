@@ -320,6 +320,11 @@ class SchedulerCache:
         # ledger below — a cycle's ordering pass patches only event-dirty
         # jobs instead of re-sorting every pending job/task
         self.order_cache = OrderCache()
+        # separate caches for preempt/reclaim flattens: each action's task
+        # set differs from allocate's AND from the other's, and sharing a
+        # cache clobbers the wholesale fast-path key every cycle
+        self.evict_flatten_caches = {"preempt": FlattenCache(),
+                                     "reclaim": FlattenCache()}
         # device-resident packed solver buffers (delta-shipped per
         # session); built here so a missing GPU fails at construction,
         # not inside a cycle

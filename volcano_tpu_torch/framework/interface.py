@@ -42,7 +42,7 @@ class Action:
 
 #: action modes of the JAX package this package does not run yet, with the
 #: ROADMAP item that ports each
-UNPORTED_MODES = {"sequential": "A2", "sharded": "A7"}
+UNPORTED_MODES = {"sharded": "A7"}
 
 
 def check_mode_ported(mode: str) -> None:

@@ -122,8 +122,11 @@ class Session:
         self._mutation_ops = 0
         self.flatten_cache = getattr(cache, "flatten_cache", None)
         # event-sourced ordering inputs (ops.ordering.OrderCache): the
-        # allocate action's collection pass patches only event-dirty jobs
+        # allocate action's collection pass patches only event-dirty jobs;
+        # preempt/reclaim reuse its per-job sorted pending lists
         self.order_cache = getattr(cache, "order_cache", None)
+        self.evict_flatten_caches = getattr(cache, "evict_flatten_caches",
+                                            None) or {}
         # the device-resident packed arena (ops.device_cache) and the
         # solver-mode preference (only "packed" is ported)
         self.device_cache = getattr(cache, "device_cache", None)

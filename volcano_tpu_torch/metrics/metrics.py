@@ -188,6 +188,11 @@ unschedule_task_count = registry.register(Gauge(
     "volcano_unschedule_task_count", "Unschedulable task count", ["job_id"]))
 unschedule_job_count = registry.register(Gauge(
     "volcano_unschedule_job_count", "Unschedulable job count"))
+preemption_victims = registry.register(Gauge(
+    "volcano_preemption_victims", "Number of selected preemption victims"))
+preemption_attempts = registry.register(Counter(
+    "volcano_total_preemption_attempts",
+    "Total preemption attempts in the cluster"))
 
 # -- queue metrics (queue.go) ----------------------------------------------
 

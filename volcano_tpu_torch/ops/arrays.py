@@ -182,6 +182,15 @@ class SnapshotArrays:
     #: (priority/gang) — live shares only break its ties, so a strict
     #: priority is never inverted by a share re-rank
     job_drf_prerank: np.ndarray = None    # [J] int32
+    # hierarchical-DRF tree (ops.hdrf.build_hdrf; None unless hdrf active)
+    hdrf_parent: np.ndarray = None        # [H]
+    hdrf_weight: np.ndarray = None        # [H]
+    hdrf_depth: np.ndarray = None         # [H]
+    hdrf_is_leaf: np.ndarray = None       # [H] bool
+    hdrf_leaf_req: np.ndarray = None      # [H,R]
+    hdrf_job_leaf: np.ndarray = None      # [J]
+    hdrf_ancestors: np.ndarray = None     # [J,D]
+    hdrf_total_allocated: np.ndarray = None  # [R]
     # -- nodes ---------------------------------------------------------------
     nodes_list: List[NodeInfo] = field(default_factory=list)
     node_idle: np.ndarray = None        # [N,R]
@@ -260,13 +269,29 @@ class SnapshotArrays:
         """The arrays the solver consumes, as torch tensors on ``device``
         (one host->device hop). ``device=None`` means the CUDA device and
         raises when there is none; pass ``device="cpu"`` to run on the
-        host. (The hierarchical-DRF arrays are not part of this package
-        yet.)"""
+        host."""
         from .convert import to_torch_arrays
         return to_torch_arrays(self.numpy_dict(), device)
 
     def numpy_dict(self) -> Dict[str, np.ndarray]:
-        """device_dict's arrays as the host-side numpy buffers."""
+        """device_dict's arrays as the host-side numpy buffers. The hdrf
+        arrays ride along only when the hierarchy was built (their
+        presence changes the packed layout, so the arena re-ships)."""
+        d = self._base_numpy_dict()
+        if self.hdrf_parent is not None:
+            d.update({
+                "hdrf_parent": self.hdrf_parent,
+                "hdrf_weight": self.hdrf_weight,
+                "hdrf_depth": self.hdrf_depth,
+                "hdrf_is_leaf": self.hdrf_is_leaf,
+                "hdrf_leaf_req": self.hdrf_leaf_req,
+                "hdrf_job_leaf": self.hdrf_job_leaf,
+                "hdrf_ancestors": self.hdrf_ancestors,
+                "hdrf_total_allocated": self.hdrf_total_allocated,
+            })
+        return d
+
+    def _base_numpy_dict(self) -> Dict[str, np.ndarray]:
         return {
             "task_init_req": self.task_init_req,
             "task_req": self.task_req,
@@ -1286,7 +1311,8 @@ def _flatten_event(cache, jobs, nodes, tasks_in_order, queues,
     arr.queue_request = qr
     _apply_queue_overrides(arr, asm["queue_index"], queues, vocab)
     # DRF inputs: re-zeroed persistent buffers (the allocate action fills
-    # them in place when drf is active)
+    # them in place when drf is active); hdrf arrays are rebuilt by
+    # build_hdrf per session, so reset to the fresh-flatten default
     da, dt, dp = evn["drf_alloc"], evn["drf_total"], evn["drf_prerank"]
     da[:] = 0.0
     dt[:] = 0.0
@@ -1294,6 +1320,9 @@ def _flatten_event(cache, jobs, nodes, tasks_in_order, queues,
     arr.job_drf_allocated = da
     arr.drf_total = dt
     arr.job_drf_prerank = dp
+    arr.hdrf_parent = arr.hdrf_weight = arr.hdrf_depth = None
+    arr.hdrf_is_leaf = arr.hdrf_leaf_req = arr.hdrf_job_leaf = None
+    arr.hdrf_ancestors = arr.hdrf_total_allocated = None
     arr.thresholds = vocab.thresholds()
     # scalar_dim_mask depends only on R, which is unchanged here
     cache._ev_commit(taken, "event", None, rows_patched)

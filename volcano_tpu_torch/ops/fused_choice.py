@@ -139,7 +139,7 @@ def _kernel():
 
 
 def _launch(init_req, avail, used_now, inv_alloc, node_static, eligible,
-            pods_ok, sig_feas_i8, pars, families):
+            pods_ok, sig_feas_i8, pars, families, prefilter: bool):
     T, R = init_req.shape
     N = avail.shape[0]
     dev = init_req.device
@@ -188,12 +188,14 @@ def _launch(init_req, avail, used_now, inv_alloc, node_static, eligible,
         raise RuntimeError(f"fused_choice kernel launch failed: CUDA error "
                            f"{err}")
     fused_choice.launches += 1
+    if prefilter:
+        fused_choice.launches_hdrf_prefilter += 1
     return best_s, best_i, node_max
 
 
 def fused_choice(init_req, avail, used_now, inv_alloc, node_static,
                  eligible, pods_ok, sig_feas_i8, pars,
-                 families: Tuple[str, ...]):
+                 families: Tuple[str, ...], prefilter: bool = False):
     """Fused (feasibility & score & argmax & node-max) over [T,N].
 
     init_req [T,R] f32; avail/used_now/inv_alloc [N,R] f32; node_static
@@ -201,7 +203,9 @@ def fused_choice(init_req, avail, used_now, inv_alloc, node_static,
     [T,N] int8 (round-invariant predicate mask); pars [5+R] f32
     (``pack_pars``). Returns (best_score [T] f32, best_idx [T] int32,
     node_max [N] f32). CPU tensors take the plain version; CUDA tensors
-    launch the kernel (``fused_choice.launches`` counts those launches)."""
+    launch the kernel (``fused_choice.launches`` counts those launches;
+    ``prefilter``: the call is the hdrf placeability prefilter's, counted
+    apart as well in ``fused_choice.launches_hdrf_prefilter``)."""
     dev = init_req.device
     if dev.type == "cpu":
         return fused_choice_plain(init_req, avail, used_now, inv_alloc,
@@ -209,12 +213,15 @@ def fused_choice(init_req, avail, used_now, inv_alloc, node_static,
                                   sig_feas_i8, pars, families)
     if dev.type == "cuda":
         return _launch(init_req, avail, used_now, inv_alloc, node_static,
-                       eligible, pods_ok, sig_feas_i8, pars, families)
+                       eligible, pods_ok, sig_feas_i8, pars, families,
+                       prefilter)
     raise ValueError(f"fused_choice: no implementation for device {dev}")
 
 
 #: kernel launches made through the wrapper (not the plain version's calls)
 fused_choice.launches = 0
+#: those of them made by the hdrf placeability prefilter
+fused_choice.launches_hdrf_prefilter = 0
 
 
 #: H100 SXM data sheet: HBM3 bandwidth

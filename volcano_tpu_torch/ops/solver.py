@@ -44,6 +44,7 @@ from .fused_choice import (
 
 BIG_KEY = 2**31 - 1
 INF = float("inf")
+INT32_MAX = 2**31 - 1
 
 
 class SolveResult(NamedTuple):
@@ -105,6 +106,22 @@ def _segment_sum(vals, idx, n: int):
     out = torch.zeros((n,) + tuple(vals.shape[1:]), dtype=vals.dtype,
                       device=vals.device)
     return out.index_add_(0, idx, vals)
+
+
+def _segment_min(vals, idx, n: int, fill):
+    """jax.ops.segment_min: an empty segment reads ``fill``, JAX's value
+    for it (+inf for floats, INT32_MAX for int32)."""
+    out = torch.full((n,), fill, dtype=vals.dtype, device=vals.device)
+    return out.scatter_reduce_(0, idx, vals, "amin", include_self=True)
+
+
+def _segment_any(flags, idx, n: int):
+    """jax.ops.segment_max(flags.astype(int32)) > 0: an empty segment reads
+    INT32_MIN, so it is False."""
+    out = torch.full((n,), -INT32_MAX - 1, dtype=torch.int32,
+                     device=flags.device)
+    return out.scatter_reduce_(0, idx, flags.to(torch.int32), "amax",
+                               include_self=True) > 0
 
 
 def _scatter_set(perm, vals):
@@ -406,6 +423,19 @@ def _admission_round_fused(eligible, a, avail, used_now, sig_feas, sig_i8,
                          scalar_mask, npods, max_pods, 0)
 
 
+def hdrf_placeable(init_req, avail, used_now, inv_alloc, node_static,
+                   eligible, pods_ok, sig_i8, pars, score_families):
+    """The hdrf round's placeability prefilter on the fused path: one
+    ``fused_choice`` pass over this round's eligible rows and pods_ok
+    nodes; a row is placeable iff some node is feasible for it (its best
+    score is not NEG). Only ``best_s`` is read."""
+    best_s, _, _ = fused_choice(
+        init_req, avail.contiguous(), used_now.contiguous(), inv_alloc,
+        node_static, eligible.to(torch.float32), pods_ok.to(torch.float32),
+        sig_i8, pars, score_families, prefilter=True)
+    return best_s > NEG * 0.5
+
+
 def _admit_prefix(choice, fit_req, acct_req, avail, rank, thr,
                   scalar_mask, npods, max_pods, per_node_cap: int):
     """Priority-prefix admission for a round's per-task node choices
@@ -487,15 +517,20 @@ def solve_allocate(arrays: Dict[str, object],
     (drf plugin active) the admission priority is recomputed every round
     from live dominant shares.
 
+    With ``use_hdrf_order`` as well (drf with its hierarchy; the arrays
+    carry ``ops.hdrf.build_hdrf``'s tree) the re-rank and the progressive
+    cap come from the weighted queue tree (``ops.hdrf.hdrf_state``), fed
+    each round by a placeability prefilter: the fused path launches the
+    fused choice kernel once more per round for it.
+
     ``fused``: "auto" takes the fused kernel on CUDA in the waterfall herd
     modes (``herd_mode`` pack/spread, ``per_node_cap`` 0); "on" forces it
     (CUDA tensors only; other herd modes stay dense); "off" runs the dense
     path.
     """
-    if use_hdrf_order:
-        raise NotImplementedError(
-            "use_hdrf_order needs ops/hdrf.py, which is not ported yet "
-            "(it arrives with the hierarchical-DRF slice)")
+    if use_hdrf_order and use_drf_order and "hdrf_parent" not in arrays:
+        raise ValueError("use_hdrf_order needs the hdrf arrays "
+                         "(ops.hdrf.build_hdrf)")
     if fused not in ("auto", "on", "off"):
         raise ValueError(f"fused must be 'auto', 'on' or 'off': {fused!r}")
     dev = resolve_device(device)
@@ -538,8 +573,15 @@ def solve_allocate(arrays: Dict[str, object],
     else:
         qalloc0 = torch.zeros((1, R), dtype=torch.float32, device=dev)
 
+    use_hdrf = use_drf_order and use_hdrf_order
     if use_drf_order:
         jobres0, drf_rank, drf_cap = drf_state(a, rank)
+        if use_hdrf:
+            # hierarchical mode: the comparator AND the progressive cap
+            # both come from the weighted tree — one tree recursion per
+            # round feeds the re-rank and the per-ancestor-level gate
+            from .hdrf import hdrf_state
+            hdrf_rank_cap = hdrf_state(a, rank)
     else:
         jobres0 = torch.zeros((1, R), dtype=torch.float32, device=dev)
 
@@ -562,7 +604,27 @@ def solve_allocate(arrays: Dict[str, object],
             eligible = (a["task_valid"] & (st.assigned < 0)
                         & ~st.excluded[tj])
             used_now = a["node_used"] + (a["node_idle"] - st.idle)
-            if use_drf_order:
+            feas0 = None
+            if use_hdrf:
+                # placeability prefilter: a task no node can take this
+                # round must not hold its sibling group's min key or pin
+                # its subtree's budget. The dense path reuses this round's
+                # feasibility matrix; the fused path pays one extra kernel
+                # pass
+                if use_fused:
+                    placeable = hdrf_placeable(
+                        init_req, avail, used_now, inv_alloc, node_static,
+                        eligible, st.npods < a["node_max_pods"], sig_i8,
+                        fused_pars, score_families)
+                else:
+                    feas0 = fits_matrix(init_req, avail, thr,
+                                        scalar_mask) & sig_feas
+                    placeable = torch.any(
+                        feas0 & (st.npods < a["node_max_pods"])[None, :],
+                        dim=1)
+                r_rank, eligible = hdrf_rank_cap(eligible & placeable,
+                                                 st.jobres)
+            elif use_drf_order:
                 r_rank = drf_rank(st.jobres)
                 eligible = drf_cap(eligible, st.jobres)
             else:
@@ -588,8 +650,9 @@ def solve_allocate(arrays: Dict[str, object],
                     r_rank, thr, scalar_mask, st.npods, herd_mode,
                     score_families)
             else:
-                feas = fits_matrix(init_req, avail, thr,
-                                   scalar_mask) & sig_feas
+                feas = feas0 if feas0 is not None else (
+                    fits_matrix(init_req, avail, thr, scalar_mask)
+                    & sig_feas)
                 score = score_matrix(init_req, avail, used_now,
                                      a["node_alloc"], params,
                                      score_families)
@@ -718,6 +781,177 @@ def solve_allocate(arrays: Dict[str, object],
     return SolveResult(
         assigned=assigned, kind=kind, job_ready=job_ready,
         rounds=torch.tensor(st.rounds, dtype=torch.int32, device=dev),
+        compact=_compact(assigned, kind, N))
+
+
+# ---------------------------------------------------------------------------
+# sequential parity solver (reference greedy semantics)
+# ---------------------------------------------------------------------------
+
+def _host_array(v) -> np.ndarray:
+    return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def solve_allocate_sequential(arrays: Dict[str, object],
+                              score_params: Dict[str, object],
+                              score_families: Tuple[str, ...] = (
+                                  "binpack", "kube"),
+                              use_queue_cap: bool = False,
+                              overflow_pass: bool = False,
+                              work_conserving: bool = True,
+                              device: Optional[object] = None) -> SolveResult:
+    """One pass over the tasks in rank order: task k's allocation is
+    visible to task k+1, and the job-boundary gang revert mirrors
+    Statement.Discard (the JAX package's ``lax.scan`` solver, here a
+    Python loop of device steps).
+
+    Requires tasks grouped by job in rank order (flatten_snapshot
+    guarantees this). O(T) sequential steps — the parity oracle for small
+    problems. Job boundaries are read from a host copy of ``task_job``
+    (and queue indices from one of ``job_queue``), so a step never waits
+    on the device; every decision on device values is a ``torch.where``.
+
+    overflow_pass (with use_queue_cap): after the strict deserved-capped
+    pass, a second pass over the leftover tasks with the caps relaxed to
+    hard capability — the sequential oracle for the round solver's
+    work-conserving overflow phases.
+    """
+    dev = resolve_device(device)
+    task_job_h = _host_array(arrays["task_job"])
+    job_queue_h = _host_array(arrays["job_queue"])
+    a = to_torch_arrays(arrays, dev)
+    params = to_torch_params(score_params, dev)
+    T = a["task_init_req"].shape[0]
+    N = a["node_idle"].shape[0]
+    J = a["job_min"].shape[0]
+    R = a["task_init_req"].shape[1]
+    thr = a["thresholds"]
+    scalar_mask = a["scalar_dim_mask"]
+    tj = a["task_job"].long()
+    sig_feas_all = a["sig_masks"][a["task_sig"].long()] \
+        & a["node_valid"][None, :]
+    init_req = a["task_init_req"]
+    task_req = a["task_req"]
+    max_pods = a["node_max_pods"]
+    counts_ready = a["task_counts_ready"].to(torch.int32)
+    # score_matrix's per-call prelude, hoisted out of the task loop
+    inv_alloc = 1.0 / a["node_alloc"]
+    pars = pack_pars(params, R)
+    node_static = params["node_static"].to(torch.float32)
+    arange_n = torch.arange(N, device=dev)
+
+    if use_queue_cap:
+        total = torch.sum(
+            a["node_alloc"] * a["node_valid"][:, None].to(torch.float32),
+            dim=0)
+        Q, deserved, _, _, _ = queue_cap_state(
+            a, a["task_rank"], thr, total, ease_unrequested=work_conserving)
+        qalloc0 = a["queue_allocated"]
+        arange_q = torch.arange(Q, device=dev)
+    else:
+        deserved = None
+        qalloc0 = torch.zeros((1, R), dtype=torch.float32, device=dev)
+
+    def finalize_job(st, jidx: int, base_alloc) -> None:
+        """Job boundary: keep the job's allocations if it is ready, else
+        restore the snapshot taken at its first task. Only this pass's
+        allocations revert (a prior pass's are already dispatched), and
+        pipelined tasks survive, as ssn.Pipeline is outside the
+        Statement."""
+        ready = (a["job_ready_base"][jidx] + base_alloc[jidx]
+                 + st["jalloc"]) >= a["job_min"][jidx]
+        revert = ((tj == jidx) & (st["assigned"] >= 0) & (st["kind"] == 0)
+                  & ~ready & (st["snap_assigned"] < 0))
+        st["idle"] = torch.where(ready, st["idle"], st["snap_idle"])
+        st["npods"] = torch.where(ready, st["npods"], st["snap_npods"])
+        if use_queue_cap:
+            amt = torch.sum(task_req * revert[:, None], dim=0)
+            jq = int(job_queue_h[jidx])
+            st["qalloc"] = st["qalloc"] - (arange_q == jq)[:, None] \
+                * amt[None, :]
+        st["assigned"] = torch.where(revert, -1, st["assigned"])
+        st["kind"] = torch.where(revert, -1, st["kind"])
+
+    def snapshot(st) -> None:
+        st["jalloc"] = torch.zeros((), dtype=torch.int32, device=dev)
+        st["snap_idle"], st["snap_npods"] = st["idle"], st["npods"]
+        st["snap_assigned"] = st["assigned"].clone()
+
+    def run_pass(bound, base_alloc, st) -> None:
+        cur_job = int(task_job_h[0])
+        snapshot(st)
+        for i in range(T):
+            jidx = int(task_job_h[i])
+            if jidx != cur_job:
+                finalize_job(st, cur_job, base_alloc)
+                snapshot(st)
+            cur_job = jidx
+            idle, pipe, npods = st["idle"], st["pipe"], st["npods"]
+            assigned, kind = st["assigned"], st["kind"]
+            # the overflow pass only visits leftovers
+            valid = a["task_valid"][i] & (assigned[i] < 0)
+            req_fit = init_req[i]
+            req_acct = task_req[i]
+            pods_ok = npods < max_pods
+            if use_queue_cap:
+                jq = int(job_queue_h[jidx])
+                valid = valid & le_fits(st["qalloc"][jq] + req_acct,
+                                        bound[jq], thr, scalar_mask,
+                                        ignore_req=req_acct)
+            base = sig_feas_all[i] & pods_ok & valid
+            feas_idle = le_fits(req_fit[None, :], idle, thr,
+                                scalar_mask) & base
+            future = idle + a["node_extra_future"] - pipe
+            feas_fut = le_fits(req_fit[None, :], future, thr,
+                               scalar_mask) & base
+            used_now = a["node_used"] + (a["node_idle"] - idle)
+            score = _score(req_fit[None, :], used_now, inv_alloc,
+                           node_static, pars, score_families)[0]
+            pick_idle = torch.any(feas_idle)
+            pick_fut = ~pick_idle & torch.any(feas_fut)
+            feas = torch.where(pick_idle, feas_idle, feas_fut)
+            node = torch.argmax(torch.where(feas, score, NEG))
+            got = pick_idle | pick_fut
+            node = torch.where(got, node, -1)
+            debit = torch.where(got, req_acct, 0.0)
+            onehot = (arange_n == node)[:, None]
+            st["idle"] = idle - torch.where(pick_idle,
+                                            debit[None, :] * onehot, 0.0)
+            st["pipe"] = pipe + torch.where(pick_fut,
+                                            debit[None, :] * onehot, 0.0)
+            st["npods"] = npods + torch.where(
+                pick_idle, onehot[:, 0].to(torch.int32), 0)
+            if use_queue_cap:
+                q_onehot = (arange_q == jq)[:, None]
+                st["qalloc"] = st["qalloc"] + q_onehot * debit[None, :]
+            # never clobber a prior pass's assignment
+            prev_a, prev_k = assigned[i].clone(), kind[i].clone()
+            assigned[i] = torch.where(prev_a >= 0, prev_a, node)
+            kind[i] = torch.where(
+                prev_a >= 0, prev_k,
+                torch.where(pick_idle, 0, torch.where(pick_fut, 1, -1)))
+            st["jalloc"] = st["jalloc"] + (
+                pick_idle & a["task_counts_ready"][i]).to(torch.int32)
+        finalize_job(st, cur_job, base_alloc)
+
+    st = {"idle": a["node_idle"], "pipe": torch.zeros_like(a["node_idle"]),
+          "npods": a["node_npods"], "qalloc": qalloc0,
+          "assigned": torch.full((T,), -1, dtype=torch.int32, device=dev),
+          "kind": torch.full((T,), -1, dtype=torch.int32, device=dev)}
+    run_pass(deserved, torch.zeros(J, dtype=torch.int32, device=dev), st)
+    if overflow_pass and use_queue_cap:
+        placed = (st["assigned"] >= 0) & (st["kind"] == 0)
+        base1 = _segment_sum(placed.to(torch.int32) * counts_ready, tj, J)
+        run_pass(a["queue_capability"], base1, st)
+    assigned, kind = st["assigned"], st["kind"]
+    alloc_counts = _segment_sum(
+        ((assigned >= 0) & (kind == 0)).to(torch.int32) * counts_ready,
+        tj, J)
+    job_ready = ((a["job_ready_base"] + alloc_counts) >= a["job_min"]) \
+        & a["job_valid"]
+    return SolveResult(
+        assigned=assigned, kind=kind, job_ready=job_ready,
+        rounds=torch.tensor(T, dtype=torch.int32, device=dev),
         compact=_compact(assigned, kind, N))
 
 

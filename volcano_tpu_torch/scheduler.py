@@ -27,14 +27,13 @@ DEFAULT_SCHEDULE_PERIOD = 1.0  # seconds (options.go:83)
 
 #: actions of the JAX package this package does not run yet, with the
 #: ROADMAP item that ports each
-UNPORTED_ACTIONS = {"preempt": "A6", "reclaim": "A6", "reschedule": "A8",
-                    "elect": "A8", "reserve": "A8"}
+UNPORTED_ACTIONS = {"reschedule": "A8", "elect": "A8", "reserve": "A8"}
 
 
 def check_conf_ported(conf) -> None:
-    """Raise NotImplementedError for a conf that names an action, an
-    action mode or a plugin option this package does not have yet: at
-    conf loading, so it can never degrade into a host fallback later."""
+    """Raise NotImplementedError for a conf that names an action or an
+    action mode this package does not have yet: at conf loading, so it
+    can never degrade into a host fallback later."""
     from .framework.interface import check_mode_ported
     from .framework import Arguments
 
@@ -45,14 +44,6 @@ def check_conf_ported(conf) -> None:
                 f"action {name!r} is not ported yet (ROADMAP {item})")
     for c in conf.configurations:
         check_mode_ported(Arguments(c.arguments).get("mode", ""))
-    for tier in conf.tiers:
-        for opt in tier.plugins:
-            if opt.name == "drf" and (
-                    opt.arguments.get("drf.enableHierarchy")
-                    or getattr(opt, "enabled_hierarchy", False)):
-                raise NotImplementedError(
-                    "drf with hierarchy (hdrf) is not ported yet "
-                    "(ROADMAP A2)")
 
 
 class Scheduler:
