@@ -83,7 +83,24 @@ checkout, then, printing one JSON line per phase:
 11. sequential - one cycle with allocate in mode: sequential (500 pods,
              50 nodes, binpack + predicates) on the card and on the host:
              the same binds;
-12. the kernels line, then the result line.
+12. sharded - the node-axis sharded solver (volcano_tpu_torch.parallel) on
+             a mesh of 4 virtual shards on the card: (a) the cycle
+             phase's cluster through Scheduler(solver_mode="sharded") over
+             a ShardedDeviceCache, a 10k-pod burst (every kernel launch
+             held against the plain version), 5 steady waves and two
+             cycles with nothing new (the second ships 0 bytes to every
+             shard), each cycle's binds identical to a packed twin's; on a
+             host with 2+ cards, (a) again over the distinct cards; (b)
+             bench.py sharded_scale()'s 100k tasks x 10k nodes, built from
+             numpy, through the sharded arena and the packed arena: the
+             same decision digest, then a zero-dirty session; (c) the evict
+             phase's preempt solve through solve_evict_uniform_sharded,
+             equal to the D=1 solve; (d) an hdrf burst (the hdrf phase's
+             cluster at 128 nodes) through the sharded Scheduler, binds
+             identical to a packed twin's, every launch of the round's
+             choice and of the placeability prefilter held against the
+             plain version; the kernel timed at the shard shape;
+13. the kernels line, then the result line.
 
 `--phases kernel,edges` runs a subset (device and build always run) and
 then prints neither of the last two lines.
@@ -418,9 +435,12 @@ def check_choice(args, fam, what: str) -> dict:
 #: card tests: shapes off every tile (the kernel's node tile is 128 or 64
 #: nodes, its row ranges T / G), later-round row masks, ties across node
 #: tiles, the fit test's boundaries, zero scores of either sign, the
-#: steady scheduling cycle's shape (one 10-gang wave: T=112 over N=2048)
-#: and the hdrf burst's (T=5120 over N=1024, R=3), whose placeability
-#: prefilter launches the kernel with every row eligible, then fewer
+#: steady scheduling cycle's shape (one 10-gang wave: T=112 over N=2048),
+#: the hdrf burst's (T=5120 over N=1024, R=3), whose placeability
+#: prefilter launches the kernel with every row eligible, then fewer, and
+#: the sharded phase's shard shapes: the burst's and a wave's T over one
+#: shard's 512 of 2048 nodes, the 100k x 10k solve's 2500 of 10000, and
+#: the sharded hdrf burst's T=640 over one shard's 32 of 128 nodes, R=3
 EDGE_CASES = (
     (5120, 1024, 3, "random"), (5120, 1024, 3, "none_eligible"),
     (5120, 1024, 3, "all_eligible"),
@@ -435,6 +455,12 @@ EDGE_CASES = (
     (777, 1000, 2, "random"), (500, 1000, 2, "all_tied"),
     (500, 1000, 5, "all_tied"), (300, 1000, 2, "neg_zero"),
     (257, 130, 3, "neg_zero"),
+    (10240, 512, 2, "random"), (10240, 512, 2, "none_eligible"),
+    (10240, 512, 2, "all_tied"), (112, 512, 2, "random"),
+    (112, 512, 2, "none_eligible"), (112, 512, 2, "all_tied"),
+    (100000, 2500, 2, "random"),
+    (640, 32, 3, "random"), (640, 32, 3, "none_eligible"),
+    (640, 32, 3, "all_tied"),
 )
 
 
@@ -770,13 +796,15 @@ class StoreCluster:
     ``queues`` ([(name, weight, annotations)]), ``gpus`` (nvidia.com/gpu
     per node), ``gpu_every`` (every such gang's pods ask for 1 GPU, as in
     bench.py's make_problem), ``size_stride`` (gang k's cpu request is
-    1 + (k // size_stride) % 3) and ``conf`` shape other clusters.
+    1 + (k // size_stride) % 3), ``conf`` and ``solver_mode`` (the
+    Scheduler's) shape other clusters.
     FakeBinder records the binds."""
 
     def __init__(self, dev, n_nodes: int, n_jobs: int = 0,
                  tasks_per_job: int = 10, cpu: str = "32", mem: str = "128Gi",
                  shared_arena=None, queues=None, gpus: int = 0,
-                 gpu_every: int = 0, size_stride: int = 1, conf=None):
+                 gpu_every: int = 0, size_stride: int = 1, conf=None,
+                 solver_mode=None):
         from volcano_tpu_torch.cache import (
             FakeBinder, FakeEvictor, SchedulerCache,
         )
@@ -814,7 +842,8 @@ class StoreCluster:
         self.queue_of: dict = {}  # gang -> queue
         self.req: dict = {}      # pod key -> (cpu, memory bytes, gpu)
         self.submit(n_jobs)
-        self.sched = Scheduler(self.cache, scheduler_conf=conf)
+        self.sched = Scheduler(self.cache, scheduler_conf=conf,
+                               solver_mode=solver_mode)
 
     def submit(self, n_jobs: int, cpu_per_pod: int = 0) -> list:
         """``n_jobs`` new gangs, round-robin over the queues;
@@ -977,18 +1006,20 @@ class ReadbackProbe:
 
 
 class KernelAudit:
-    """Wraps the solver's fused_choice for the cycles run inside it: the
-    outputs of every launch the cycle makes, the hdrf placeability
-    prefilter's included, are held, bit for bit, against
-    fused_choice_plain on the same inputs (the plain call launches no
-    kernel, so the wrapper's count is the cycle's own). Records each
-    launch's (T, N, R, families, prefilter) and the seconds the checks
-    took."""
+    """Wraps the solvers' fused_choice (the single-device solver's and the
+    sharded one's) for the cycles run inside it: the outputs of every
+    launch the cycle makes, the hdrf placeability prefilter's included,
+    are held, bit for bit, against fused_choice_plain on the same inputs
+    (the plain call launches no kernel, so the wrapper's count is the
+    cycle's own). Records each launch's (T, N, R, families, prefilter) and
+    the seconds the checks took."""
 
     def __enter__(self):
         from volcano_tpu_torch.ops import fused_choice as fc
         from volcano_tpu_torch.ops import solver
-        self._solver, self._orig, self.shapes = solver, solver.fused_choice, []
+        from volcano_tpu_torch.parallel import sharded_solver
+        self._mods = (solver, sharded_solver)
+        self._orig, self.shapes = fc.fused_choice, []
         self.seconds = 0.0
 
         def audited(*args, **kw):
@@ -1010,11 +1041,13 @@ class KernelAudit:
             self.seconds += time.perf_counter() - t0
             return got
 
-        solver.fused_choice = audited
+        for mod in self._mods:
+            mod.fused_choice = audited
         return self
 
     def __exit__(self, *exc):
-        self._solver.fused_choice = self._orig
+        for mod in self._mods:
+            mod.fused_choice = self._orig
 
     def summary(self) -> dict:
         return {"launches_checked": len(self.shapes),
@@ -1318,12 +1351,12 @@ tiers:
 """
 
 
-def hdrf_cluster(dev, sc, shared_arena=None):
+def hdrf_cluster(dev, sc, shared_arena=None, solver_mode=None):
     return StoreCluster(dev, sc["n_nodes"], sc["n_jobs"], sc["tasks_per_job"],
                         cpu=sc["cpu"], mem=sc["mem"], gpus=sc["gpus"],
                         gpu_every=sc["gpu_every"], size_stride=3,
-                        queues=HDRF_QUEUES,
-                        conf=HDRF_CONF, shared_arena=shared_arena)
+                        queues=HDRF_QUEUES, conf=HDRF_CONF,
+                        shared_arena=shared_arena, solver_mode=solver_mode)
 
 
 def queue_shares(c, n_nodes: int) -> dict:
@@ -1741,9 +1774,390 @@ def phase_sequential(dev, n_nodes: int = 50, n_jobs: int = 50) -> dict:
     emit(out)
     return out
 
+# -- the node-axis sharded solver (bench.py sharded_scale()) ------------------
+
+SHARDED = dict(shards=4, n_nodes=CYCLE["n_nodes"], n_jobs=CYCLE["n_jobs"],
+               steady_cycles=5, scale_tasks=100_000, scale_nodes=10_000,
+               hdrf_nodes=128)
+#: the sharded burst's kernel shape: T=10240 over one shard's 512 of 2048
+#: nodes, the default conf's kube scores
+SHARD_KERNEL = (10240, 512, 2, ("kube",))
+
+
+class ShardLaunches:
+    """Counts the sharded solver's kernel launches per shard for the
+    cycles run inside it (each shard launches on its own signature mask,
+    so the mask's address names the shard; in first-seen order, which is
+    shard order). Launches nothing itself."""
+
+    def __enter__(self):
+        from volcano_tpu_torch.ops import fused_choice as fc
+        from volcano_tpu_torch.parallel import sharded_solver
+        self._mod, self._orig = sharded_solver, sharded_solver.fused_choice
+        self.by_shard: dict = {}
+
+        def counted(*args, **kw):
+            before = fc.fused_choice.launches
+            out = self._orig(*args, **kw)
+            key = args[7].data_ptr()
+            self.by_shard[key] = self.by_shard.get(key, 0) + (
+                fc.fused_choice.launches - before)
+            return out
+
+        sharded_solver.fused_choice = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.fused_choice = self._orig
+
+    def counts(self) -> list:
+        return list(self.by_shard.values())
+
+
+def _arena_row(c) -> dict:
+    t = c.sched.last_cycle_timing
+    return {k: t[k] for k in ("arena_mode", "arena_shard_bytes",
+                              "arena_bytes_shipped") if k in t}
+
+
+def sharded_cycles(dev, mesh, sc, twin=None) -> dict:
+    """Part (a): the cycle phase's cluster through the sharded Scheduler
+    over ``mesh`` and through a packed twin (or against ``twin``, the
+    binds a packed twin gave before): a burst with every launch audited,
+    steady waves (the last with a gang that fits no node), then two cycles
+    with nothing new. Every cycle's binds identical to the twin's; the
+    second quiet cycle ships 0 bytes to every shard."""
+    from contextlib import nullcontext
+
+    from volcano_tpu_torch.ops.device_cache import ShardedDeviceCache
+
+    n, j = sc["n_nodes"], sc["n_jobs"]
+    tpj, w = CYCLE["tasks_per_job"], CYCLE["wave_jobs"]
+    info = {"shards": mesh.size, "distinct_devices": len(mesh.distinct)}
+    s = StoreCluster(dev, n, j, tpj, solver_mode="sharded")
+    s.cache.sharded_device_cache = ShardedDeviceCache(mesh)
+    p = StoreCluster(dev, n, j, tpj) if twin is None else None
+    plan = [("burst", 0, 0)] + [
+        (f"steady {i}", w, int(i == sc["steady_cycles"] - 1))
+        for i in range(sc["steady_cycles"])] + [
+        ("quiet 0", 0, 0), ("quiet 1", 0, 0)]
+    rows, binds, audit = [], [], None
+    for i, (label, wave, stuck) in enumerate(plan):
+        gangs = []
+        for c in (s, p) if p is not None else (s,):
+            gangs = c.submit(wave)
+            if stuck:
+                c.submit(1, cpu_per_pod=33)
+        with (KernelAudit() if label == "burst" else nullcontext()) as au:
+            with ShardLaunches() as sl:
+                row = s.run_cycle()
+        audit = au.summary() if label == "burst" else audit
+        s.check(f"sharded {label}", gangs=gangs if i else list(s.gangs))
+        got = sorted(s.cache.binder.binds.items())
+        if p is not None:
+            prow = p.run_cycle()
+            p.check(f"packed twin {label}")
+            want = sorted(p.cache.binder.binds.items())
+            row.update(packed_cycle_ms=prow["cycle_ms"],
+                       packed_launches=prow["launches"],
+                       packed_solve_ms=prow.get("solve_ms"))
+        else:
+            want = twin[i]
+        if got != want:
+            raise AssertionError(f"sharded {label}: binds differ from the "
+                                 f"packed twin's")
+        binds.append(got)
+        row.update(_arena_row(s), launches_per_shard=sl.counts(), **info)
+        if row.get("arena_mode") != "sharded" or (
+                label != "quiet 1" and row["launches"] <= 0):
+            raise AssertionError(f"sharded {label}: {row}")
+        if label == "burst" and row["binds"] != j * tpj:
+            raise AssertionError(f"sharded burst bound {row['binds']}")
+        emit({"phase": "sharded", "part": "cycle", "regime": label,
+              "identical_to_packed": True, **row})
+        rows.append(row)
+    last = rows[-1]
+    if last["arena_shard_bytes"] != [0.0] * mesh.size \
+            or last["arena_bytes_shipped"] != 0.0:
+        raise AssertionError(f"the quiet cycle shipped bytes: {last}")
+    emit({"phase": "sharded", "part": "cycle_audit", **info, **audit,
+          "equal": True})
+    return {"rows": rows, "binds": binds, "audit": audit}
+
+
+def sharded_hdrf(dev, mesh, sc) -> dict:
+    """Part (d): the hdrf cell's cluster, cut to ``hdrf_nodes`` nodes and
+    half as many gangs (BASELINE config #5's ratio of demand to cpu),
+    through the sharded Scheduler over ``mesh`` beside a packed twin: one
+    burst with every launch of both per-shard call sites (the round's
+    choice and the hdrf placeability prefilter) held against the plain
+    version; binds identical to the twin's."""
+    from volcano_tpu_torch.ops.device_cache import ShardedDeviceCache
+
+    h = dict(HDRF, n_nodes=sc["hdrf_nodes"], n_jobs=sc["hdrf_nodes"] // 2)
+    info = {"shards": mesh.size, "distinct_devices": len(mesh.distinct)}
+    s = hdrf_cluster(dev, h, solver_mode="sharded")
+    s.cache.sharded_device_cache = ShardedDeviceCache(mesh)
+    p = hdrf_cluster(dev, h)
+    with KernelAudit() as au:
+        with ShardLaunches() as sl:
+            row = s.run_cycle()
+    audit = au.summary()
+    s.check("sharded hdrf burst")
+    prow = p.run_cycle()
+    p.check("packed twin hdrf burst")
+    if sorted(s.cache.binder.binds.items()) \
+            != sorted(p.cache.binder.binds.items()):
+        raise AssertionError("sharded hdrf burst: binds differ from the "
+                             "packed twin's")
+    row.update(_arena_row(s), launches_per_shard=sl.counts(), **info,
+               packed_cycle_ms=prow["cycle_ms"],
+               packed_launches=prow["launches"],
+               packed_prefilter_launches=prow["prefilter_launches"])
+    if row.get("arena_mode") != "sharded" or row["binds"] <= 0 \
+            or audit["launches_checked"] != row["launches"] \
+            or audit["prefilter_launches_checked"] <= 0 \
+            or audit["prefilter_launches_checked"] \
+            != row["prefilter_launches"]:
+        raise AssertionError(f"sharded hdrf burst: {row}, audit {audit}")
+    emit({"phase": "sharded", "part": "hdrf", "regime": "burst",
+          "nodes": h["n_nodes"], "pods": h["n_jobs"] * h["tasks_per_job"],
+          "identical_to_packed": True, **row, "cycle_audit": audit})
+    return row
+
+
+def synth_snapshot(n_tasks: int, n_nodes: int, n_queues: int = 3,
+                   tasks_per_job: int = 97, seed: int = 7):
+    """bench.py's _synth_snapshot on the port's SnapshotArrays: the padded
+    arrays of a problem built straight from numpy (no 100k pod objects),
+    sized unsaturated (capacity ~3x demand) so every gang places in one
+    fixpoint iteration."""
+    from volcano_tpu_torch.api.resource import ResourceVocab
+    from volcano_tpu_torch.ops import SnapshotArrays
+
+    rng = np.random.default_rng(seed)
+    T, N = n_tasks, n_nodes
+    R = 2
+    J = max(T // tasks_per_job + (1 if T % tasks_per_job else 0), 1)
+    arr = SnapshotArrays(vocab=ResourceVocab())
+    arr.task_init_req = np.zeros((T, R), np.float32)
+    arr.task_job = np.zeros(T, np.int32)
+    arr.task_rank = np.arange(T, dtype=np.int32)
+    arr.task_sig = np.zeros(T, np.int32)
+    arr.task_counts_ready = np.ones(T, bool)
+    arr.task_valid = np.ones(T, bool)
+    job_min = np.zeros(J, np.int32)
+    for j in range(J):
+        lo, hi = j * tasks_per_job, min((j + 1) * tasks_per_job, T)
+        req = (float(rng.integers(1, 4)) * 1000.0,
+               float(rng.integers(1, 5)) * (1 << 30))
+        arr.task_init_req[lo:hi] = req
+        arr.task_job[lo:hi] = j
+        job_min[j] = hi - lo
+    arr.task_req = arr.task_init_req.copy()
+    arr.job_min = job_min
+    arr.job_ready_base = np.zeros(J, np.int32)
+    arr.job_queue = (np.arange(J) % n_queues).astype(np.int32)
+    arr.job_valid = np.ones(J, bool)
+    arr.job_drf_allocated = np.zeros((J, R), np.float32)
+    arr.drf_total = np.zeros(R, np.float32)
+    arr.job_drf_prerank = np.zeros(J, np.int32)
+    idle = np.zeros((N, R), np.float32)
+    per_node_cpu = max(3.0 * np.sum(arr.task_init_req[:, 0]) / N, 8000.0)
+    idle[:, 0] = np.float32(per_node_cpu)
+    idle[:, 1] = np.float32(256.0 * (1 << 30))
+    arr.node_idle = idle
+    arr.node_extra_future = np.zeros((N, R), np.float32)
+    arr.node_used = np.zeros((N, R), np.float32)
+    arr.node_alloc = idle.copy()
+    arr.node_npods = np.zeros(N, np.int32)
+    arr.node_max_pods = np.full(N, 1 << 20, np.int32)
+    arr.node_valid = np.ones(N, bool)
+    arr.sig_masks = np.ones((1, N), bool)
+    arr.queue_weight = np.arange(1, n_queues + 1, dtype=np.float32)
+    arr.queue_capability = np.full((n_queues, R), np.inf, np.float32)
+    arr.queue_allocated = np.zeros((n_queues, R), np.float32)
+    qreq = np.zeros((n_queues, R), np.float64)
+    for j in range(J):
+        lo, hi = j * tasks_per_job, min((j + 1) * tasks_per_job, T)
+        qreq[arr.job_queue[j]] += arr.task_init_req[lo:hi].sum(axis=0)
+    arr.queue_request = qreq.astype(np.float32)
+    arr.thresholds = np.array([10.0, 1.0], np.float32)
+    arr.scalar_dim_mask = np.zeros(R, bool)
+    return arr
+
+
+def decision_digest(*arrays) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(np.asarray(a)).tobytes())
+    return h.hexdigest()[:16]
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def sharded_scale(dev, mesh, sc) -> dict:
+    """Part (b): bench.py sharded_scale()'s problem, one solve through the
+    sharded arena over ``mesh`` and one through the packed arena, with the
+    bench's flags (pack, binpack, queue caps): decision digests equal;
+    then a zero-dirty session of the sharded arena. Host ms (synchronised)
+    and device ms (profiler) per solve."""
+    from volcano_tpu_torch.ops import fused_choice as fc
+    from volcano_tpu_torch.ops.device_cache import (
+        PackedDeviceCache, ShardedDeviceCache,
+    )
+    from volcano_tpu_torch.ops.solver import solve_allocate_packed2d
+    from volcano_tpu_torch.parallel import solve_allocate_sharded_arena
+
+    t0 = time.perf_counter()
+    arr = synth_snapshot(sc["scale_tasks"], sc["scale_nodes"])
+    fbuf, ibuf, layout = arr.packed()
+    build_s = time.perf_counter() - t0
+    params = {"binpack_weight": np.float32(1.0),
+              "binpack_res_weights": np.ones(arr.R, np.float32),
+              "least_req_weight": np.float32(0.0),
+              "most_req_weight": np.float32(0.0),
+              "balanced_weight": np.float32(0.0),
+              "node_static": np.zeros(arr.N, np.float32)}
+    kw = dict(herd_mode="pack", score_families=("binpack",),
+              use_queue_cap=True)
+    sdc = ShardedDeviceCache(mesh)
+    (bufs, sp), upload_ms = _timed(
+        lambda: (sdc.update(fbuf, ibuf, layout), sdc.params_device(params)))
+    full_bytes = list(sdc.last_shard_bytes)
+    fc.fused_choice.launches = 0
+    r_sh, sh_ms = _timed(lambda: solve_allocate_sharded_arena(
+        *bufs, sp, mesh, **kw))
+    sh_launches = fc.fused_choice.launches
+    dc = PackedDeviceCache(device=dev)
+    f2d, i2d = dc.update(fbuf, ibuf, layout)
+    pp = dc.params_device(params)
+    fc.fused_choice.launches = 0
+    r_pk, pk_ms = _timed(lambda: solve_allocate_packed2d(
+        f2d, i2d, layout, pp, **kw))
+    pk_launches = fc.fused_choice.launches
+    T = arr.T
+    a_sh, k_sh = r_sh.assigned[:T].cpu().numpy(), r_sh.kind[:T].cpu().numpy()
+    a_pk, k_pk = r_pk.assigned[:T].cpu().numpy(), r_pk.kind[:T].cpu().numpy()
+    d_sh, d_pk = decision_digest(a_sh, k_sh), decision_digest(a_pk, k_pk)
+    if d_sh != d_pk:
+        raise AssertionError(
+            f"sharded_scale: digest {d_sh} (sharded) != {d_pk} (packed): "
+            f"{int((a_sh != a_pk).sum())} assignments and "
+            f"{int((k_sh != k_pk).sum())} kinds differ, placed "
+            f"{int((a_sh >= 0).sum())} / {int((a_pk >= 0).sum())}, rounds "
+            f"{int(r_sh.rounds)} / {int(r_pk.rounds)}")
+    placed = int((a_sh >= 0).sum())
+    if placed <= 0:
+        raise AssertionError("sharded_scale: nothing placed")
+    bufs2 = sdc.update(fbuf, ibuf, layout)
+    zero = list(sdc.last_shard_bytes)
+    if zero != [0] * mesh.size or sdc.last_shipped_bytes:
+        raise AssertionError(f"sharded_scale: zero-dirty session shipped "
+                             f"{zero}")
+    sh_dev = trace_profile(lambda: solve_allocate_sharded_arena(
+        *bufs2, sp, mesh, **kw))["device_ms"]
+    pk_dev = trace_profile(lambda: solve_allocate_packed2d(
+        f2d, i2d, layout, pp, **kw))["device_ms"]
+    out = {"phase": "sharded", "part": "scale", "shards": mesh.size,
+           "distinct_devices": len(mesh.distinct), "T": T, "N": arr.N,
+           "shard_shape": [T, arr.N // mesh.size, arr.R],
+           "build_s": build_s, "upload_ms": upload_ms,
+           "full_ship_shard_bytes": full_bytes,
+           "sharded_host_ms": sh_ms, "sharded_device_ms": sh_dev,
+           "sharded_rounds": int(r_sh.rounds), "sharded_launches":
+           sh_launches, "packed_host_ms": pk_ms, "packed_device_ms": pk_dev,
+           "packed_rounds": int(r_pk.rounds), "packed_launches": pk_launches,
+           "placed": placed, "digest": d_sh, "digest_identical": True,
+           "zero_dirty_shard_bytes": zero}
+    emit(out)
+    return out
+
+
+def preempt_inputs(dev):
+    """The evict phase's preempt (BASELINE config #4: 2000 running
+    low-priority pods on 200 nodes, a high-priority gang of 1000): one
+    cycle under EvictAudit, returning the uniform solve's inputs."""
+    sc = EVICT
+    n = sc["n_nodes"]
+    c = EvictCluster(dev, n, sc["cpu"], sc["mem"], [("q0", None)])
+    c.job("low", "q0", "low-priority", 1, sc["low_pods"], 1, 2,
+          nodes=[f"n{i % n}" for i in range(sc["low_pods"])])
+    c.job("high", "q0", "high-priority", sc["gang"], sc["gang"], 2, 4)
+    with EvictAudit() as audit:
+        c.cycle()
+    for name, arrays, victims, params, kw, _, _ in audit.calls:
+        if name == "solve_evict_uniform":
+            return arrays, victims, params, kw
+    raise AssertionError("the preempt cycle made no uniform eviction solve")
+
+
+def sharded_evict(dev, mesh) -> dict:
+    """Part (c): the preempt solve through solve_evict_uniform_sharded over
+    ``mesh``, against the D=1 solve_evict_uniform on the same arrays."""
+    from volcano_tpu_torch.ops.evict import solve_evict_uniform
+    from volcano_tpu_torch.parallel import solve_evict_uniform_sharded
+
+    arrays, victims, params, kw = preempt_inputs(dev)
+    flags = {k: v for k, v in kw.items() if k != "device"}
+    one, one_ms = _timed(lambda: solve_evict_uniform(
+        arrays, victims, params, device=dev, **flags))
+    res, sh_ms = _timed(lambda: solve_evict_uniform_sharded(
+        arrays, victims, params, mesh, **flags))
+    for k in ("assigned", "evicted_by", "job_placed"):
+        if not torch.equal(getattr(res, k), getattr(one, k)):
+            raise AssertionError(f"sharded evict: {k} differs from the D=1 "
+                                 f"solve")
+    out = {"phase": "sharded", "part": "evict", "shards": mesh.size,
+           "distinct_devices": len(mesh.distinct),
+           "T": int(arrays["task_init_req"].shape[0]),
+           "N": int(arrays["node_idle"].shape[0]),
+           "J": int(arrays["job_min"].shape[0]),
+           "V": int(victims["v_req"].shape[0]),
+           "placed": int((res.assigned >= 0).sum().item()),
+           "evicted": int((res.evicted_by >= 0).sum().item()),
+           "sharded_host_ms": sh_ms, "d1_host_ms": one_ms,
+           "equal_to_d1": True}
+    if not out["placed"] or not out["evicted"]:
+        raise AssertionError(f"sharded evict: {out}")
+    emit(out)
+    return out
+
+
+def phase_sharded(dev, scale=None) -> dict:
+    """The node-axis sharded solver on a mesh of ``shards`` virtual shards
+    of the card: (a) the cycle, (b) the 100k x 10k solve, (c) the
+    eviction solve, (d) an hdrf burst, and the kernel at the shard
+    shape."""
+    from volcano_tpu_torch.parallel import arena_mesh, make_mesh
+
+    sc = dict(SHARDED, **(scale or {}))
+    mesh = make_mesh([dev] * sc["shards"])
+    cyc = sharded_cycles(dev, mesh, sc)
+    out = {"cycles": cyc}
+    if torch.cuda.device_count() >= 2:
+        out["cycles_multi"] = sharded_cycles(dev, arena_mesh(), sc,
+                                             twin=cyc["binds"])
+    t0 = time.perf_counter()
+    out["scale"] = sharded_scale(dev, mesh, sc)
+    out["scale"]["seconds"] = time.perf_counter() - t0
+    out["evict"] = sharded_evict(dev, mesh)
+    out["hdrf"] = sharded_hdrf(dev, mesh, sc)
+    T, N, R, fam = SHARD_KERNEL
+    out["kernel"] = kernel_row(kernel_inputs(400, T, N, R, dev), fam,
+                               "the sharded burst's shard shape")
+    return out
+
 
 PHASES = ("kernel", "edges", "small", "solve", "profile", "cycle", "hdrf",
-          "evict", "sequential")
+          "evict", "sequential", "sharded")
 
 
 def main() -> int:
@@ -1779,27 +2193,38 @@ def main() -> int:
         ("small", phase_small), ("solve", phase_solve),
         ("profile", phase_profile), ("cycle", phase_cycle),
         ("hdrf", phase_hdrf), ("evict", phase_evict),
-        ("sequential", phase_sequential)) if name in phases}
+        ("sequential", phase_sequential), ("sharded", phase_sharded))
+        if name in phases}
     emit({"phase": "seconds", **seconds})
     if set(phases) != set(PHASES):
         return 0
-    krows, cyc, hdrf, evict = (out[k] for k in ("kernel", "cycle", "hdrf",
-                                                "evict"))
+    krows, cyc, hdrf, evict, sharded = (
+        out[k] for k in ("kernel", "cycle", "hdrf", "evict", "sharded"))
     main_launches = out["solve"][1]
     head = next(r for r in krows if r["R"] == 2 and r["eligible_rows"]
                 > 0.5 * r["T"] and r["families"] == ["binpack"])
     # the main path: the scheduling cycle's measured burst and timed
-    # steady cycles, the hdrf cycles and the eviction cycles, each counted
-    # from 0 (the sequential mode launches no kernel)
+    # steady cycles, the hdrf cycles, the eviction cycles and the sharded
+    # cycles, each counted from 0 (the sequential mode launches no kernel)
     cycle_rows = [cyc["burst"]] + cyc["steady"]
     evict_launches = sum(r["launches"] + r["next_cycle_launches"]
                          for r in evict)
+    sharded_rows = sharded["cycles"]["rows"] + sharded.get(
+        "cycles_multi", {}).get("rows", []) + [sharded["hdrf"]]
+    sharded_launches = sum(r["launches"] for r in sharded_rows)
+    if sharded_launches <= 0:
+        raise AssertionError("the sharded cycles launched no kernel")
+    shard_k = sharded["kernel"]
     emit({"kernels": [{
         "name": "fused_choice", "route": "cuda",
         "source": "volcano_tpu_torch/csrc/fused_choice.cu",
         "replaces": "volcano_tpu/ops/pallas_kernels.py:201",
         "launches": sum(r["launches"] for r in cycle_rows + hdrf["rows"])
-        + evict_launches,
+        + evict_launches + sharded_launches,
+        "launches_sharded": sharded_launches,
+        "launches_sharded_hdrf_prefilter":
+            sharded["hdrf"]["prefilter_launches"],
+        "launches_sharded_scale_solve": sharded["scale"]["sharded_launches"],
         "launches_per_burst_cycle": cyc["burst"]["launches"],
         "launches_per_steady_cycle": statistics.median(
             r["launches"] for r in cyc["steady"]),
@@ -1808,12 +2233,18 @@ def main() -> int:
                                        for r in hdrf["rows"]),
         "launches_evict_cycles": evict_launches,
         "launches_headline_solve": main_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in krows),
+        "max_abs_err": max(r["max_abs_err"] for r in krows + [shard_k]),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None,
         "shape": {"T": head["T"], "N": head["N"], "R": head["R"],
-                  "families": head["families"]}}]})
+                  "families": head["families"]},
+        "shard_shape": {"T": shard_k["T"], "N": shard_k["N"],
+                        "R": shard_k["R"], "families": shard_k["families"],
+                        "shards": sharded["cycles"]["rows"][0]["shards"],
+                        "ms": shard_k["ms"], "plain_ms": shard_k["plain_ms"],
+                        "bound_ms": shard_k["bound_ms"],
+                        "bound_by": shard_k["bound_by"]}}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})
     return 0

@@ -134,7 +134,7 @@ def test_device_failure_on_a_cuda_arena_is_not_absorbed(failure):
 
 #: confs naming an action, a mode or an option, with the ROADMAP item that
 #: ports it, or None once ported (preempt and reclaim with A6, the
-#: sequential mode and the drf hierarchy with A2)
+#: sequential mode and the drf hierarchy with A2, the sharded mode with A7)
 UNPORTED_CONFS = {
     "preempt": ('actions: "enqueue, preempt, allocate"', None),
     "reclaim": ('actions: "enqueue, reclaim, allocate, backfill"', None),
@@ -142,7 +142,7 @@ UNPORTED_CONFS = {
     "sequential": ('actions: "allocate"\nconfigurations:\n- name: allocate\n'
                    '  arguments:\n    mode: sequential', None),
     "sharded": ('actions: "allocate"\nconfigurations:\n- name: allocate\n'
-                '  arguments:\n    mode: sharded', "A7"),
+                '  arguments:\n    mode: sharded', None),
     "hdrf": ('actions: "allocate"\ntiers:\n- plugins:\n  - name: drf\n'
              '    arguments:\n      drf.enableHierarchy: true', None),
 }
@@ -163,7 +163,8 @@ def test_unported_conf_raises_at_loading(name):
     if item is None:
         sched = Scheduler(_cpu_cache(), scheduler_conf=text)
         names = [a.name() for a in sched.actions]
-        assert names and (name in names or name in ("sequential", "hdrf"))
+        assert names and (name in names
+                          or name in ("sequential", "sharded", "hdrf"))
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         Scheduler(_cpu_cache(), scheduler_conf=text)
@@ -171,7 +172,6 @@ def test_unported_conf_raises_at_loading(name):
 
 @pytest.mark.parametrize("kw,item", [
     ({"compile_cache_dir": "cc"}, "A8"), ({"prewarm": True}, "A8"),
-    ({"solver_mode": "sharded"}, "A7"), ({"solver_mode": "auto"}, "A7"),
 ])
 def test_unported_scheduler_options_raise(kw, item):
     Scheduler = pkg_mod("torch", "scheduler").Scheduler
@@ -179,20 +179,23 @@ def test_unported_scheduler_options_raise(kw, item):
         Scheduler(_cpu_cache(), **kw)
 
 
-def test_unported_mode_never_reaches_the_host_fallback(tmp_path):
+def test_unported_mode_never_reaches_the_host_fallback(tmp_path,
+                                                      monkeypatch):
     """A mode that reaches an action anyway (a session opened with its own
     configurations) raises before the breaker's scope: nothing binds, no
-    device failure is counted, no host fallback runs."""
+    device failure is counted, no host fallback runs. Every mode of the
+    JAX package is ported, so a stand-in mode is registered as unported."""
     fw = pkg_mod("torch", "framework")
     conf_mod = pkg_mod("torch", "conf")
+    monkeypatch.setitem(fw.interface.UNPORTED_MODES, "stand-in", "A9")
     c = SeededCluster("torch", 29, n_nodes=6)
     c.submit_gangs(3)
     for action in ("allocate", "preempt", "reclaim"):
         ssn = fw.open_session(c.cache, c.sched.tiers, [
             conf_mod.Configuration(name=action,
-                                   arguments={"mode": "sharded"})])
+                                   arguments={"mode": "stand-in"})])
         try:
-            with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+            with pytest.raises(NotImplementedError, match="ROADMAP A9"):
                 fw.get_action(action).execute(ssn)
             assert "host_fallback" not in ssn.solver_options.get(
                 "timing", {})
@@ -204,9 +207,9 @@ def test_unported_mode_never_reaches_the_host_fallback(tmp_path):
     assert c.cache.breaker.fallback_cycles == 0
     # a hot reload to an unported conf raises out of the cycle
     path = tmp_path / "conf.yaml"
-    path.write_text(UNPORTED_CONFS["sharded"][0])
+    path.write_text(UNPORTED_CONFS["reschedule"][0])
     c.sched.conf_path = str(path)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         c.sched.run_once()
     assert c.cache.binder.binds == {}
 
@@ -281,3 +284,37 @@ def test_sequential_cycle_card_equals_host(cuda_device):
     import chip_smoke
     out = chip_smoke.phase_sequential(cuda_device, n_nodes=10, n_jobs=10)
     assert out["identical_to_host"] and out["binds"] > 0
+
+
+@pytest.mark.cuda
+def test_sharded_cycles_equal_packed_on_card(cuda_device):
+    """The sharded Scheduler on a mesh of 4 virtual shards of the card
+    binds what the packed one binds, cycle by cycle (every launch of the
+    burst held against the plain version, the second quiet cycle shipping
+    0 bytes to every shard)."""
+    import chip_smoke
+    from volcano_tpu_torch.parallel import make_mesh
+    out = chip_smoke.sharded_cycles(
+        cuda_device, make_mesh([cuda_device] * 4),
+        dict(chip_smoke.SHARDED, n_nodes=200, n_jobs=100, steady_cycles=2))
+    assert out["audit"]["launches_checked"] > 0
+    assert out["rows"][0]["binds"] == 1000
+
+
+@pytest.mark.cuda
+def test_sharded_solve_and_evict_equal_packed_on_card(cuda_device):
+    """The sharded solve over the sharded arena on 4 virtual shards of the
+    card gives the packed solve's decisions exactly (digest), and the
+    sharded eviction solve the D=1 solve's."""
+    import chip_smoke
+    from volcano_tpu_torch.parallel import make_mesh
+    mesh = make_mesh([cuda_device] * 4)
+    out = chip_smoke.sharded_scale(cuda_device, mesh, dict(
+        chip_smoke.SHARDED, scale_tasks=4000, scale_nodes=1000))
+    assert out["digest_identical"] and out["sharded_launches"] > 0
+    saved = dict(chip_smoke.EVICT)
+    try:
+        chip_smoke.EVICT.update(n_nodes=20, low_pods=200, gang=100)
+        assert chip_smoke.sharded_evict(cuda_device, mesh)["equal_to_d1"]
+    finally:
+        chip_smoke.EVICT.update(saved)

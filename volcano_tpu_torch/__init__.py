@@ -8,6 +8,8 @@ control plane's own copies (``framework``, ``plugins``, ``actions``,
 arena (``ops.device_cache``) -> round solve (``ops.solver``) with the
 per-round task x node choice as a hand-written CUDA kernel for Hopper
 (``csrc/fused_choice.cu``, wrapped by ``ops.fused_choice``) -> async
-result readback (``ops.pipeline``) -> Statement replay. Entry points run
-on the CUDA device unless the caller passes ``device="cpu"``.
+result readback (``ops.pipeline``) -> Statement replay. In the sharded
+mode the solve splits the node axis over a device mesh (``parallel``).
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``.
 """

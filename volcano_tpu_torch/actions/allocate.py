@@ -8,7 +8,11 @@ Two execution modes:
   resident arena (ops.device_cache + ops.solver.solve_allocate_delta), and
   replay the returned assignments through Statement/Pipeline — the
   ordering and transaction semantics stay in the control plane, the
-  task x node math runs on device.
+  task x node math runs on device. In mode sharded (or under the
+  Scheduler's solver_mode "sharded", or "auto" past its byte budget) the
+  solve is the node-axis sharded one over the sharded arena
+  (ops.device_cache.ShardedDeviceCache +
+  parallel.solve_allocate_sharded_arena).
 - host: a faithful per-task loop (predicate -> prioritize -> best node ->
   allocate/pipeline) used when custom host-only plugins are present, for
   parity testing, and as the reference semantics oracle. It also finishes
@@ -36,11 +40,14 @@ log = logging.getLogger(__name__)
 _UNRESOLVED = object()  # sentinel: _pending_tasks resolves the key itself
 
 
-def _on_card(ssn) -> bool:
+def _on_card(ssn, dc=None) -> bool:
     """True when the session's cache keeps its solver arena on a CUDA
-    device. The host-oracle fallback is kept only for a CPU arena."""
+    device, or the arena ``dc`` is a sharded one with a CUDA shard. The
+    host-oracle fallback is kept only for a CPU arena."""
     dev = getattr(ssn.cache, "device", None)
-    return getattr(dev, "type", None) == "cuda"
+    mesh = getattr(dc, "mesh", None)
+    return getattr(dev, "type", None) == "cuda" or (
+        mesh is not None and any(d.type == "cuda" for d in mesh.devices))
 
 
 def _task_order_key(ssn):
@@ -203,7 +210,8 @@ class AllocateAction(Action):
     # solver mode
     # ------------------------------------------------------------------
 
-    def _execute_solver(self, ssn, sequential: bool = False) -> None:
+    def _execute_solver(self, ssn, sequential: bool = False,
+                        sharded: bool = False) -> None:
         import time as _time
 
         from ..ops import flatten_snapshot, solve_allocate
@@ -354,6 +362,11 @@ class AllocateAction(Action):
                 + params["balanced_weight"]) else "spread"
 
         dc = getattr(ssn, "device_cache", None)
+        # which arena a device fault must invalidate (and whose devices
+        # decide whether the host oracle may finish the session): the
+        # packed one, or the sharded one in a sharded session
+        fault_dc = getattr(ssn, "sharded_device_cache", None) if sharded \
+            else dc
         solve_kw = dict(herd_mode=herd, score_families=families,
                         use_queue_cap=use_queue_cap,
                         use_drf_order=use_drf_order,
@@ -375,6 +388,38 @@ class AllocateAction(Action):
                     arr.numpy_dict(), params, score_families=families,
                     use_queue_cap=use_queue_cap,
                     work_conserving=work_conserving, device=dev)
+            elif sharded:
+                # mode: sharded — the node-axis sharded solver over the
+                # sharded device-resident arena (ShardedDeviceCache): node
+                # chunks live per shard, task/job chunks once per device,
+                # and a steady session ships dirty chunks only to the
+                # shards owning them (0 bytes when nothing changed). At D=1
+                # the solve is the packed path's with no collective
+                from ..parallel import solve_allocate_sharded_arena
+                t1 = _time.perf_counter()
+                fbuf, ibuf, layout = arr.packed()
+                timing["pack_ms"] = (_time.perf_counter() - t1) * 1e3
+                sdc = self._sharded_arena(ssn)
+                fault_dc = sdc
+                t1 = _time.perf_counter()
+                bufs = sdc.update(fbuf, ibuf, layout)
+                params = sdc.params_device(params)
+                timing["delta_plan_ms"] = (_time.perf_counter() - t1) * 1e3
+                timing["delta_chunks"] = float(sdc.last_shipped_chunks)
+                timing["arena_mode"] = "sharded"
+                timing["arena_bytes_shipped"] = \
+                    float(sdc.last_shipped_bytes)
+                timing["arena_full_ship"] = float(sdc.last_full_ship)
+                timing["arena_shard_bytes"] = \
+                    [float(b) for b in sdc.last_shard_bytes]
+                # the sharded solve always runs the overflow phases under
+                # queue caps: it takes no work_conserving flag
+                kw = {k: v for k, v in solve_kw.items()
+                      if k != "work_conserving"}
+                t1 = _time.perf_counter()
+                res = solve_allocate_sharded_arena(*bufs, params, sdc.mesh,
+                                                   **kw)
+                timing["dispatch_ms"] = (_time.perf_counter() - t1) * 1e3
             elif dc is not None:
                 # device-resident buffers: the dirty-chunk scatter runs at
                 # the head of the solve (solve_allocate_delta), so a
@@ -422,7 +467,7 @@ class AllocateAction(Action):
         except Exception:
             log.exception("solver dispatch failed; resetting the device "
                           "cache")
-            self._device_fault_fallback(ssn, dc, timing, breaker)
+            self._device_fault_fallback(ssn, fault_dc, timing, breaker)
             return
         # ------------------------------------------------------------------
         # dispatch/collect split: the result's device->host copy starts
@@ -436,8 +481,9 @@ class AllocateAction(Action):
         from ..ops.pipeline import start_readback
         from ..ops.solver import COMPACT_KIND_SHIFT, decode_compact
         # one int16 readback instead of two int32 ones; above 16k nodes the
-        # node index overflows the int16 packing
-        compact_ok = arr.N <= (1 << COMPACT_KIND_SHIFT)
+        # node index overflows the int16 packing, and the sharded solve has
+        # no compact form
+        compact_ok = not sharded and arr.N <= (1 << COMPACT_KIND_SHIFT)
         result = (res.compact,) if compact_ok else (res.assigned, res.kind)
         pipelined = bool(getattr(ssn, "pipeline_solver", True))
         node_names = None
@@ -451,7 +497,7 @@ class AllocateAction(Action):
             # can be built before the results exist
             statements = [ssn.statement(defer_events=True)
                           for _ in job_order]
-            if res.compact.device.type != "cpu":
+            if result[0].device.type != "cpu":
                 # young-gen GC only when the solve runs on a real
                 # accelerator: there the readback wait is genuine host
                 # idle, while on the CPU host and "device" share cores and
@@ -480,7 +526,7 @@ class AllocateAction(Action):
             # fault costs one slow cycle, not a scheduling gap
             log.exception("solver collect failed; resetting the device "
                           "cache")
-            self._device_fault_fallback(ssn, dc, timing, breaker)
+            self._device_fault_fallback(ssn, fault_dc, timing, breaker)
             return
         timing["readback_ms"] = (_time.perf_counter() - t1) * 1e3
         if breaker is not None:
@@ -514,6 +560,24 @@ class AllocateAction(Action):
             flush_bulk_commit(ssn, acc)
         timing["replay_ms"] = (_time.perf_counter() - t0) * 1e3
 
+    @staticmethod
+    def _sharded_arena(ssn):
+        """The cache's sharded arena, built on first use over
+        parallel.arena_mesh() on the cache's device type (every CUDA card
+        up to a power of two, or the cache's one CPU device) and kept on
+        the cache: an arena must outlive the session that built it. A
+        caller may install its own (over any mesh) on the cache first."""
+        sdc = getattr(ssn, "sharded_device_cache", None)
+        if sdc is None:
+            from ..ops.device_cache import ShardedDeviceCache
+            from ..parallel import arena_mesh
+            dev = getattr(ssn.cache, "device", None)
+            on_cpu = getattr(dev, "type", None) == "cpu"
+            sdc = ShardedDeviceCache(arena_mesh([dev] if on_cpu else None))
+            ssn.sharded_device_cache = sdc
+            ssn.cache.sharded_device_cache = sdc
+        return sdc
+
     def _device_fault_fallback(self, ssn, dc, timing, breaker) -> None:
         """Shared device-failure containment: count the failure against
         the circuit breaker, invalidate the arena's (possibly half-
@@ -532,7 +596,7 @@ class AllocateAction(Action):
             breaker.record_failure()
         if dc is not None:
             dc.invalidate()
-        if _on_card(ssn):
+        if _on_card(ssn, dc):
             raise
         log.warning("finishing the session through the host loop")
         timing["host_fallback"] = 1.0
@@ -776,8 +840,10 @@ class AllocateAction(Action):
             # device path circuit-broken: go straight to the host oracle
             # for this cycle instead of paying a doomed dispatch (the
             # cool-down's half-open probe re-tries the device path later).
-            # A CUDA arena has no host fallback: the cycle fails instead
-            if _on_card(ssn):
+            # A CUDA arena, or a sharded one with a CUDA shard, has no
+            # host fallback: the cycle fails instead
+            sdc = getattr(ssn, "sharded_device_cache", None)
+            if _on_card(ssn, sdc if mode == "sharded" else None):
                 raise RuntimeError(
                     "the device path is circuit-broken after repeated "
                     "device failures; a CUDA arena has no host fallback")
@@ -789,7 +855,8 @@ class AllocateAction(Action):
         if mode == "host":
             self._execute_host(ssn)
             return
-        self._execute_solver(ssn, sequential=(mode == "sequential"))
+        self._execute_solver(ssn, sequential=(mode == "sequential"),
+                             sharded=(mode == "sharded"))
         host_only = ssn.solver_options.get("host_only_jobs")
         if host_only:
             # host-only jobs ranked after some device-path job place via

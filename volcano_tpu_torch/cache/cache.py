@@ -330,12 +330,17 @@ class SchedulerCache:
         # not inside a cycle
         self.device_cache = PackedDeviceCache(device=device)
         self.device = self.device_cache.device
-        # the node-axis sharded arena arrives with the sharded solver
-        # (ROADMAP A7); until then no session dispatches sharded
+        # node-axis sharded arena (ops.device_cache.ShardedDeviceCache):
+        # built lazily by the allocate action's first sharded session over
+        # parallel.arena_mesh() on this cache's device type, unless one
+        # was installed here first
         self.sharded_device_cache = None
         # solver-mode preference consumed by Action.resolve_mode: None /
-        # "packed" (the sharded modes are not ported)
+        # "packed" keep per-action conf routing, "sharded" dispatches the
+        # sharded solver, "auto" shards when the padded problem exceeds
+        # sharded_byte_budget bytes (0 = never auto-shard)
         self.solver_mode = None
+        self.sharded_byte_budget = 0
         # gates the allocate action's dispatch/collect overlap
         self.pipeline_solver = True
         # device-path circuit breaker (resilience.CircuitBreaker): the

@@ -20,29 +20,63 @@ class Action:
 
     def resolve_mode(self, ssn, default: str = "solver") -> str:
         """Execution mode for this action: per-action YAML configuration
-        ('mode' argument), overridden to 'host' when a plugin demands
-        host-only state tracking (GPU sharing card assignment). A mode this
-        package does not have yet raises NotImplementedError here, before
-        any dispatch, so it never degrades into the host fallback."""
+        ('mode' argument), then the deployment-level solver-mode
+        preference when the conf left the mode implicit, overridden to
+        'host' when a plugin demands host-only state tracking (GPU sharing
+        card assignment). A mode this package does not have raises
+        NotImplementedError here, before any dispatch, so it never
+        degrades into the host fallback."""
         from .arguments import Arguments
 
         mode = default
+        configured = False
         for conf in ssn.configurations:
             if conf.name == self.name():
-                mode = Arguments(conf.arguments).get("mode", default)
+                m = Arguments(conf.arguments).get("mode", None)
+                if m is not None:
+                    mode, configured = m, True
+                else:
+                    mode = default
         check_mode_ported(mode)
-        if getattr(ssn, "solver_mode", None) not in (None, "packed"):
-            raise NotImplementedError(
-                f"solver mode {ssn.solver_mode!r} needs the sharded solver, "
-                "which is not ported yet (ROADMAP A7)")
+        if not configured:
+            pref = getattr(ssn, "solver_mode", None)
+            if pref in ("packed", "sharded", "auto"):
+                mode = self._preferred_mode(ssn, pref, default)
         if ssn.solver_options.get("force_host_allocate"):
             mode = "host"
         return mode
 
+    @staticmethod
+    def _preferred_mode(ssn, pref: str, default: str) -> str:
+        """The solver-mode decision rule. 'packed' keeps the single-device
+        solver; 'sharded' always dispatches the node-axis sharded solver
+        over the sharded arena; 'auto' picks sharded exactly when the
+        padded problem's device-resident footprint — one full upload at
+        the current layout, measured from whichever arena served the last
+        session — exceeds the per-device byte budget
+        (``sharded_byte_budget``). The first session (no layout measured
+        yet) and a zero/unset budget run packed."""
+        if pref == "sharded":
+            return "sharded"
+        if pref == "packed":
+            return default
+        budget = int(getattr(ssn, "sharded_byte_budget", 0) or 0)
+        if budget <= 0:
+            return default
+        est = 0
+        for attr in ("device_cache", "sharded_device_cache"):
+            c = getattr(ssn, attr, None)
+            if c is not None:
+                try:
+                    est = max(est, c.full_upload_bytes())
+                except Exception:  # noqa: BLE001 — sizing is advisory
+                    pass
+        return "sharded" if est > budget else default
+
 
 #: action modes of the JAX package this package does not run yet, with the
-#: ROADMAP item that ports each
-UNPORTED_MODES = {"sharded": "A7"}
+#: ROADMAP item that ports each (none since the sharded mode, A7)
+UNPORTED_MODES: dict = {}
 
 
 def check_mode_ported(mode: str) -> None:

@@ -127,10 +127,15 @@ class Session:
         self.order_cache = getattr(cache, "order_cache", None)
         self.evict_flatten_caches = getattr(cache, "evict_flatten_caches",
                                             None) or {}
-        # the device-resident packed arena (ops.device_cache) and the
-        # solver-mode preference (only "packed" is ported)
+        # the device-resident packed arena (ops.device_cache), the node-axis
+        # sharded arena and the solver-mode routing preference (the
+        # allocate action builds the sharded arena lazily and writes it
+        # back to the cache so it persists across sessions)
         self.device_cache = getattr(cache, "device_cache", None)
+        self.sharded_device_cache = getattr(cache, "sharded_device_cache",
+                                            None)
         self.solver_mode = getattr(cache, "solver_mode", None)
+        self.sharded_byte_budget = getattr(cache, "sharded_byte_budget", 0)
         # the allocate action's dispatch/collect overlap (False = strictly
         # serial solve for parity testing)
         self.pipeline_solver = getattr(cache, "pipeline_solver", True)

@@ -252,6 +252,11 @@ arena_params_repins_total = registry.register(Gauge(
     "Device score-params uploads (content change or failed "
     "re-validation; steady sessions serve the pinned copy), per solver "
     "mode", ["mode"]))
+arena_shard_bytes_shipped = registry.register(Gauge(
+    "volcano_arena_shard_bytes_shipped",
+    "Wire bytes shipped to one mesh shard by the last sharded session "
+    "(node-axis dirty chunks owned by the shard + its copy of the "
+    "replicated task/job delta)", ["shard"]))
 
 # -- event-sourced flatten metrics (ops.arrays FlattenCache ledger) ---------
 

@@ -367,3 +367,281 @@ class PackedDeviceCache:
         self._params_suspect = False
         self.params_repins += 1
         return self._params_dev
+
+
+# ---------------------------------------------------------------------------
+# node-axis sharded arena: the counterpart of the cache above for the
+# sharded solver (parallel.solve_allocate_sharded_arena)
+# ---------------------------------------------------------------------------
+
+#: packed keys whose LEADING axis is the node axis: split over the shards
+NODE_AXIS_KEYS = frozenset({
+    "node_idle", "node_extra_future", "node_used", "node_alloc",
+    "node_npods", "node_max_pods", "node_valid",
+})
+
+#: node axis SECOND: [S, N] predicate-signature masks are stored per shard
+#: as [S, N/D]
+NODE_COL_KEYS = frozenset({"sig_masks"})
+
+
+def split_packed_layout(layout, n_shards: int):
+    """Split a ``SnapshotArrays.packed()`` layout into the replicated part
+    (task/job/queue/misc arrays, placed once per device) and the per-shard
+    node part (node-axis arrays, one slice of N/n_shards rows per shard).
+    Offsets are re-accumulated per part, so each part is its own dense flat
+    buffer; per-shard shapes replace the node axis with N/n_shards. Returns
+    ``(rep_layout, node_layout)`` — both in the same sorted-key order as the
+    input, so byte layouts are deterministic. Pure layout arithmetic."""
+    rep, node = [], []
+    rf = ri = nf = ni = 0
+    for key, kind, _off, _size, shape in layout:
+        if key in NODE_AXIS_KEYS:
+            n = shape[0]
+            if n % n_shards:
+                raise ValueError(
+                    f"node axis {n} does not divide {n_shards} shards")
+            pshape = (n // n_shards,) + tuple(shape[1:])
+        elif key in NODE_COL_KEYS:
+            n = shape[1]
+            if n % n_shards:
+                raise ValueError(
+                    f"node axis {n} does not divide {n_shards} shards")
+            pshape = (shape[0], n // n_shards)
+        else:
+            size = 1
+            for s in shape:
+                size *= s
+            if kind == "f":
+                rep.append((key, kind, rf, size, shape))
+                rf += size
+            else:
+                rep.append((key, kind, ri, size, shape))
+                ri += size
+            continue
+        size = 1
+        for s in pshape:
+            size *= s
+        if kind == "f":
+            node.append((key, kind, nf, size, pshape))
+            nf += size
+        else:
+            node.append((key, kind, ni, size, pshape))
+            ni += size
+    return tuple(rep), tuple(node)
+
+
+def _part_sizes(part_layout) -> Tuple[int, int]:
+    """(flat f32 length, flat i32 length) of one split-layout part."""
+    nf = max((off + size for _k, kind, off, size, _s in part_layout
+              if kind == "f"), default=0)
+    ni = max((off + size for _k, kind, off, size, _s in part_layout
+              if kind != "f"), default=0)
+    return nf, ni
+
+
+class ShardedDeviceCache(PackedDeviceCache):
+    """The device-resident arena of the sharded solve.
+
+    Same contract as PackedDeviceCache — host mirror diffs, dirty-chunk
+    deltas, pinned score params, soft ``invalidate()`` — laid out for
+    ``parallel.solve_allocate_sharded_arena`` over ``mesh``
+    (``parallel.Mesh``):
+
+    - **node-axis arrays** live as one chunked buffer pair PER SHARD, on
+      that shard's device (a mesh naming one device several times still
+      gives each shard its own slabs). A dirty node row ships only to the
+      shard that owns it;
+    - **task/job/queue arrays** live as one chunked buffer pair per
+      DISTINCT device, delta-updated in place;
+    - **score params** are pinned per shard: the scalars once per distinct
+      device, ``node_static`` split along the node axis.
+
+    ``update(fbuf, ibuf, layout)`` -> ``(f_rep, i_rep, f_node, i_node,
+    rep_layout, node_layout)``: the dispatch inputs of
+    ``solve_allocate_sharded_arena`` (the four buffers as lists, one entry
+    per shard). ``last_shard_bytes`` gives the bytes shipped to each shard
+    by the last session: its node chunks plus the replicated delta (counted
+    into every shard, as the JAX package does); a zero-dirty session ships
+    0 bytes to every shard.
+    """
+
+    def __init__(self, mesh, chunk: int = 512):
+        super().__init__(chunk, device=mesh.devices[0])
+        self.mesh = mesh
+        self.D = mesh.size
+        self._rep_layout = None
+        self._node_layout = None
+        # host mirrors: rep flat [Crf*c]/[Cri*c]; node [D, Cnf*c]/[D, Cni*c]
+        self._host_rep_f = self._host_rep_i = None
+        self._host_node_f = self._host_node_i = None
+        # device state: rep {device: [Cr, chunk]}; node [D] of [Cn, chunk]
+        self._dev_rep_f = self._dev_rep_i = None
+        self._dev_node_f = self._dev_node_i = None
+        self.last_shard_bytes = [0] * self.D
+
+    # -- params ---------------------------------------------------------
+
+    def _put_params(self, params: dict) -> list:
+        from ..parallel.sharded_solver import shard_params
+        return shard_params(params, self.mesh)
+
+    def _params_alive(self, dev_params) -> bool:
+        if not dev_params or len(dev_params) != self.D:
+            return False
+        return all(isinstance(v, torch.Tensor) and v.device == dev
+                   for p, dev in zip(dev_params, self.mesh.devices)
+                   for v in p.values())
+
+    # -- lifecycle ------------------------------------------------------
+
+    def reset(self) -> None:
+        super().reset()
+        self._rep_layout = self._node_layout = None
+        self._host_rep_f = self._host_rep_i = None
+        self._host_node_f = self._host_node_i = None
+        self._dev_rep_f = self._dev_rep_i = None
+        self._dev_node_f = self._dev_node_i = None
+
+    def invalidate(self) -> None:
+        """Soft reset after a failed sharded session: one shard's scatter
+        may have landed while another's was lost, so the resident buffers
+        are dropped (the next session full-ships them) and the pinned
+        params re-validated in place."""
+        super().invalidate()
+        self._rep_layout = self._node_layout = None
+        self._dev_rep_f = self._dev_rep_i = None
+        self._dev_node_f = self._dev_node_i = None
+
+    def full_upload_bytes(self) -> int:
+        if self._host_rep_f is None or self._host_node_f is None:
+            return 0
+        return int(self._host_rep_f.nbytes + self._host_rep_i.nbytes
+                   + self._host_node_f.nbytes + self._host_node_i.nbytes)
+
+    # -- host-side packing ---------------------------------------------
+
+    def _pack_split(self, fbuf, ibuf, layout, rep_layout, node_layout,
+                    out_rep_f, out_rep_i, out_node_f, out_node_i) -> None:
+        """Scatter the global packed buffers into the split mirrors:
+        replicated keys copy through; node keys slice one row-block (or
+        sig_masks column-block) per shard."""
+        goff = {k: (off, size, shape) for k, _kind, off, size, shape
+                in layout}
+        for key, kind, off, size, shape in rep_layout:
+            g_off, g_size, _ = goff[key]
+            src = fbuf if kind == "f" else ibuf
+            dst = out_rep_f if kind == "f" else out_rep_i
+            dst[off:off + size] = src[g_off:g_off + g_size]
+        for key, kind, off, size, pshape in node_layout:
+            g_off, g_size, g_shape = goff[key]
+            src = fbuf if kind == "f" else ibuf
+            dst = out_node_f if kind == "f" else out_node_i
+            g = src[g_off:g_off + g_size].reshape(g_shape)
+            for d in range(self.D):
+                if key in NODE_COL_KEYS:
+                    nl = pshape[1]
+                    blk = g[:, d * nl:(d + 1) * nl]
+                else:
+                    nl = pshape[0]
+                    blk = g[d * nl:(d + 1) * nl]
+                dst[d, off:off + size] = blk.ravel()
+
+    # -- the session entry ---------------------------------------------
+
+    def update(self, fbuf: np.ndarray, ibuf: np.ndarray, layout):
+        c, D = self.chunk, self.D
+        if self._layout != layout or self._rep_layout is None:
+            rep_layout, node_layout = split_packed_layout(layout, D)
+        else:
+            rep_layout, node_layout = self._rep_layout, self._node_layout
+        rf, ri = _part_sizes(rep_layout)
+        nf, ni = _part_sizes(node_layout)
+        crf, cri = -(-max(rf, 1) // c), -(-max(ri, 1) // c)
+        cnf, cni = -(-max(nf, 1) // c), -(-max(ni, 1) // c)
+        srf = np.zeros(crf * c, np.float32)
+        sri = np.zeros(cri * c, np.int32)
+        snf = np.zeros((D, cnf * c), np.float32)
+        sni = np.zeros((D, cni * c), np.int32)
+        self._pack_split(fbuf, ibuf, layout, rep_layout, node_layout,
+                         srf, sri, snf, sni)
+
+        if (self._layout != layout or self._host_rep_f is None
+                or self._dev_rep_f is None
+                or self._host_rep_f.size != crf * c
+                or self._host_node_f.shape != (D, cnf * c)):
+            self._full_ship_split(srf, sri, snf, sni, layout, rep_layout,
+                                  node_layout)
+            return self._buffers()
+
+        # delta: diff the split mirrors chunk-wise; each dirty replicated
+        # chunk is scattered into every distinct device's copy, each dirty
+        # node chunk into its own shard's slab only
+        drf = self._dirty(srf, self._host_rep_f, crf)
+        dri = self._dirty(sri, self._host_rep_i, cri)
+        shard_bytes = [0] * D
+        chunks = drf.size + dri.size
+        try:
+            for dev in self.mesh.distinct:
+                self._apply(self._dev_rep_f[dev], drf, srf.reshape(crf, c))
+                self._apply(self._dev_rep_i[dev], dri, sri.reshape(cri, c))
+            for d in range(D):
+                dnf = self._dirty(snf[d], self._host_node_f[d], cnf)
+                dni = self._dirty(sni[d], self._host_node_i[d], cni)
+                self._apply(self._dev_node_f[d], dnf, snf[d].reshape(cnf, c))
+                self._apply(self._dev_node_i[d], dni, sni[d].reshape(cni, c))
+                chunks += dnf.size + dni.size
+                shard_bytes[d] = self._scatter_wire_bytes(dnf, dni)
+        except Exception:
+            # some shards took their chunks and others did not: nothing
+            # resident can be trusted against the mirror any more
+            self.reset()
+            raise
+        rep_bytes = self._scatter_wire_bytes(drf, dri)
+        if chunks:
+            self._host_rep_f, self._host_rep_i = srf, sri
+            self._host_node_f, self._host_node_i = snf, sni
+        self.last_shard_bytes = [int(b + (rep_bytes if chunks else 0))
+                                 for b in shard_bytes]
+        self._account(chunks, rep_bytes + sum(shard_bytes), full=False)
+        return self._buffers()
+
+    def _dirty(self, new, old, n_chunks: int) -> np.ndarray:
+        c = self.chunk
+        return np.nonzero((new.reshape(n_chunks, c)
+                           != old.reshape(n_chunks, c)).any(axis=1))[0]
+
+    def _full_ship_split(self, hrf, hri, hnf, hni, layout, rep_layout,
+                         node_layout) -> None:
+        """(Re)build the mirrors and place every buffer: the replicated
+        pair once per distinct device, each shard's node pair on its
+        device."""
+        c, D = self.chunk, self.D
+        self._host_rep_f, self._host_rep_i = hrf, hri
+        self._host_node_f, self._host_node_i = hnf, hni
+
+        def put(host, dev):
+            # copy=True: on a CPU arena from_numpy would alias the mirror
+            return torch.from_numpy(host.reshape(-1, c)).to(dev, copy=True)
+
+        self._dev_rep_f = {dev: put(hrf, dev) for dev in self.mesh.distinct}
+        self._dev_rep_i = {dev: put(hri, dev) for dev in self.mesh.distinct}
+        self._dev_node_f = [put(hnf[d], dev)
+                            for d, dev in enumerate(self.mesh.devices)]
+        self._dev_node_i = [put(hni[d], dev)
+                            for d, dev in enumerate(self.mesh.devices)]
+        self._layout = layout
+        self._rep_layout, self._node_layout = rep_layout, node_layout
+        rep_bytes = hrf.nbytes + hri.nbytes
+        self.last_shard_bytes = [int(hnf[d].nbytes + hni[d].nbytes
+                                     + rep_bytes) for d in range(D)]
+        self._account(hrf.size // c + hri.size // c
+                      + D * (hnf.shape[1] + hni.shape[1]) // c,
+                      rep_bytes + hnf.nbytes + hni.nbytes, full=True)
+
+    def _buffers(self):
+        devs = self.mesh.devices
+        return ([self._dev_rep_f[d] for d in devs],
+                [self._dev_rep_i[d] for d in devs],
+                list(self._dev_node_f), list(self._dev_node_i),
+                self._rep_layout, self._node_layout)

@@ -171,7 +171,10 @@ def solve_evict(arrays: Dict[str, object],
 
         elig_v = elig[jidx] & alive & v_valid
         vreq_m = v_req * elig_v[:, None]
-        prefix_incl = _segment_prefix(vreq_m, seg_start) + vreq_m    # [V,R]
+        # exact: a node's victim prefix is independent of the victims
+        # sorted before it (the sharded solve sums each shard's alone)
+        prefix_incl = _segment_prefix(vreq_m, seg_start,
+                                      exact=True) + vreq_m          # [V,R]
         p_fit = a["task_init_req"][i][None, :]
         if require_freed_covers:
             fit_at = le_fits(p_fit, prefix_incl, thr, sm) & elig_v
@@ -396,7 +399,8 @@ def solve_evict_uniform(arrays: Dict[str, object],
 
         elig_v = elig[j] & alive & v_valid
         vreq_m = v_req * elig_v[:, None]
-        prefix_incl = _segment_prefix(vreq_m, seg_start) + vreq_m  # [V,R]
+        prefix_incl = _segment_prefix(vreq_m, seg_start,
+                                      exact=True) + vreq_m        # [V,R]
         ptot = _segment_sum(vreq_m, v_node, N)                     # [N,R]
         has_v = _segment_any(elig_v, v_node, N)
         base = zeros_nr if require_freed_covers else future

@@ -314,32 +314,45 @@ def _queue_cap_mask(eligible, task_queue, req, qrem, thr, scalar_mask,
     return _scatter_set(q_perm, ok_sorted)
 
 
-def _segment_prefix(sorted_vals, seg_start_mask):
+def _segment_prefix(sorted_vals, seg_start_mask, exact: bool = False):
     """Exclusive prefix-sum of sorted_vals [T,R] within segments delimited by
-    seg_start_mask [T] bool."""
-    csum = torch.cumsum(sorted_vals, dim=0)
-    excl = csum - sorted_vals
+    seg_start_mask [T] bool.
+
+    The sum runs over the whole array and each segment subtracts its start,
+    so in float32 a segment's prefix carries the rounding of everything
+    before it. ``exact`` accumulates in float64 and rounds once: the
+    prefix then depends on the segment alone (exact for the flatten's
+    requests, integers in milli-units and bytes), which lets a shard that
+    sorts only its own nodes' tasks admit what the whole-cluster sort
+    admits. Sums that are exact do not depend on their order, so the exact
+    form scans along the innermost axis of an [R, T] copy: on the card a
+    cumsum down axis 0 of a [T, R] tensor runs one thread per column
+    through all T rows, where the innermost scan is parallel."""
+    if exact:
+        vals_t = sorted_vals.to(torch.float64).t().contiguous()
+        csum = torch.cumsum(vals_t, dim=1).t()
+        vals = vals_t.t()
+    else:
+        vals = sorted_vals
+        csum = torch.cumsum(vals, dim=0)
+    excl = csum - vals
     idx = torch.arange(sorted_vals.shape[0], device=sorted_vals.device)
     start_idx = torch.where(seg_start_mask, idx, -1)
     start_idx = torch.cummax(start_idx, dim=0).values
     base = excl[torch.clamp(start_idx, min=0)]
-    return excl - base
+    return (excl - base).to(sorted_vals.dtype)
 
 
-def _waterfall_choice(eligible, node_score, fit_req, avail, npods,
-                      max_pods, thr, scalar_mask, mode: str):
-    """Spread a herd across nodes in one round: order nodes by their herd
-    desirability (``node_score`` = per-node max of the masked score) and
-    pre-assign task positions to nodes — pack mode fills the best node to
-    its estimated slot capacity, then the next; spread mode stripes over
-    the nodes tied for best. Tasks whose pre-assigned node is infeasible
-    fall back to their personal argmax; prefix admission corrects slot
-    overestimates."""
-    T = eligible.shape[0]
-    N = node_score.shape[0]
+def _herd_mean(eligible, fit_req, scalar_mask):
+    """The eligible tasks' mean request [R], and the dims where it is
+    significant."""
     n_elig = torch.clamp(torch.sum(eligible), min=1)
     mean_req = torch.sum(fit_req * eligible[:, None], dim=0) / n_elig  # [R]
-    sig = mean_req > torch.where(scalar_mask, 10.0, 0.0)
+    return mean_req, mean_req > torch.where(scalar_mask, 10.0, 0.0)
+
+
+def _herd_slots(mean_req, sig, avail, npods, max_pods, thr, T: int):
+    """Each node's estimated capacity [N] in tasks of the mean request."""
     slots_dim = torch.where(
         sig[None, :],
         torch.floor((avail + thr[None, :])
@@ -347,12 +360,17 @@ def _waterfall_choice(eligible, node_score, fit_req, avail, npods,
         INF)
     slots = torch.amin(slots_dim, dim=1)                            # [N]
     slots = torch.minimum(slots, (max_pods - npods).to(torch.float32))
-    slots = torch.clamp(slots, 0.0, float(T))
-    has_slot = slots > 0
+    return torch.clamp(slots, 0.0, float(T))
 
+
+def _herd_target(eligible, node_score, slots, mode: str):
+    """Pre-assign the eligible tasks' positions to nodes [T]: in herd
+    desirability order (``node_score``), pack mode fills each node to its
+    ``slots``, spread mode stripes over the nodes tied for best."""
+    N = node_score.shape[0]
+    has_slot = slots > 0
     masked_score = torch.where(has_slot, node_score, NEG)
     order = _stable_argsort(-masked_score)                          # [N]
-    slots_o = slots[order]
     pos = torch.cumsum(eligible.to(torch.int32), dim=0) - 1         # [T]
     if mode == "spread":
         # stripe only across nodes whose herd score ties the best
@@ -360,12 +378,23 @@ def _waterfall_choice(eligible, node_score, fit_req, avail, npods,
         eps = 1e-5 * torch.clamp(torch.abs(best_s), min=1.0)
         near = has_slot & (masked_score >= best_s - eps)
         m = torch.clamp(torch.sum(near), min=1)
-        target = order[torch.remainder(torch.clamp(pos, min=0), m)]
-    else:
-        cum = torch.cumsum(slots_o, dim=0)
-        idx = torch.searchsorted(cum, pos.to(torch.float32), right=True)
-        target = order[torch.clamp(idx, 0, N - 1)]
-    return target
+        return order[torch.remainder(torch.clamp(pos, min=0), m)]
+    cum = torch.cumsum(slots[order], dim=0)
+    idx = torch.searchsorted(cum, pos.to(torch.float32), right=True)
+    return order[torch.clamp(idx, 0, N - 1)]
+
+
+def _waterfall_choice(eligible, node_score, fit_req, avail, npods,
+                      max_pods, thr, scalar_mask, mode: str):
+    """Spread a herd across nodes in one round: order nodes by their herd
+    desirability (``node_score`` = per-node max of the masked score) and
+    pre-assign task positions to nodes (``_herd_target``). Tasks whose
+    pre-assigned node is infeasible fall back to their personal argmax;
+    prefix admission corrects slot overestimates."""
+    mean_req, sig = _herd_mean(eligible, fit_req, scalar_mask)
+    slots = _herd_slots(mean_req, sig, avail, npods, max_pods, thr,
+                        eligible.shape[0])
+    return _herd_target(eligible, node_score, slots, mode)
 
 
 def _admission_round(eligible, feas, score, fit_req, acct_req, avail,
@@ -451,7 +480,9 @@ def _admit_prefix(choice, fit_req, acct_req, avail, rank, thr,
     seg_start = torch.cat(
         [torch.ones(1, dtype=torch.bool, device=choice.device),
          s_choice[1:] != s_choice[:-1]])
-    prefix = _segment_prefix(s_fit, seg_start)                     # [T,R]
+    # exact: per node, independent of the other nodes' tasks (the sharded
+    # solve admits per shard and must admit the same)
+    prefix = _segment_prefix(s_fit, seg_start, exact=True)         # [T,R]
 
     s_node = torch.clamp(s_choice, min=0)
     fits = le_fits(prefix + s_fit, avail[s_node], thr, scalar_mask,
@@ -481,7 +512,9 @@ def _admit_prefix(choice, fit_req, acct_req, avail, rank, thr,
 # ---------------------------------------------------------------------------
 
 class _State:
-    """The solve's carry (the JAX version's while_loop tuple)."""
+    """The solve's carry (the JAX version's while_loop tuple). The node
+    state (idle, pipe, npods) is one tensor, or one per shard in the
+    sharded solve."""
 
     __slots__ = ("idle", "pipe", "npods", "qalloc", "jobres", "assigned",
                  "kind", "excluded", "rounds")
@@ -489,6 +522,173 @@ class _State:
     def __init__(self, **kw):
         for k, v in kw.items():
             setattr(self, k, v)
+
+
+class _Fairness:
+    """A solve's replicated job-side state, shared by the single-device
+    and the sharded solves: per-queue deserved caps (``use_queue_cap``,
+    water-filled from ``total``, the cluster's valid allocatable [R]), the
+    live DRF or hierarchical-DRF ranks and caps, each round's admission
+    order under them, and the per-queue / per-job accounting of the
+    round's admissions and the gang reverts."""
+
+    def __init__(self, a, total, use_queue_cap: bool, use_drf_order: bool,
+                 use_hdrf: bool, ease_unrequested: bool = True):
+        dev = a["task_rank"].device
+        R = a["task_init_req"].shape[1]
+        self.a, self.rank = a, a["task_rank"]
+        self.tj = a["task_job"].long()
+        self.J = a["job_min"].shape[0]
+        self.use_queue_cap, self.use_drf_order = use_queue_cap, use_drf_order
+        self.use_hdrf = use_hdrf
+        if use_queue_cap:
+            (self.Q, self.deserved, self.task_queue, self.q_perm,
+             self.q_seg_start) = queue_cap_state(
+                a, self.rank, a["thresholds"], total,
+                ease_unrequested=ease_unrequested)
+            self.qalloc0 = a["queue_allocated"]
+            # static-sort gathers hoisted out of the round loop
+            self.qs_q = self.task_queue[self.q_perm]
+            self.qs_req = a["task_req"][self.q_perm]
+        else:
+            self.qalloc0 = torch.zeros((1, R), dtype=torch.float32,
+                                       device=dev)
+        if use_drf_order:
+            self.jobres0, self.drf_rank, self.drf_cap = drf_state(
+                a, self.rank)
+            if use_hdrf:
+                # hierarchical mode: the comparator AND the progressive
+                # cap both come from the weighted tree — one tree
+                # recursion per round feeds the re-rank and the
+                # per-ancestor-level gate
+                from .hdrf import hdrf_state
+                self.hdrf_rank_cap = hdrf_state(a, self.rank)
+        else:
+            self.jobres0 = torch.zeros((1, R), dtype=torch.float32,
+                                       device=dev)
+
+    def queue_cap(self, eligible, qalloc, bound, order=None):
+        """The eligible tasks whose queue's running prefix of eligible
+        requests still fits ``bound`` less ``qalloc``, in (queue, rank)
+        order (``order``: a live rank, else the static one)."""
+        a = self.a
+        qrem = torch.clamp(bound - qalloc, min=0.0)
+        if order is not None:
+            qp = _lexsort((order, self.task_queue))
+            return _queue_cap_mask(eligible, self.task_queue, a["task_req"],
+                                   qrem, a["thresholds"],
+                                   a["scalar_dim_mask"], qp,
+                                   self.q_seg_start)
+        return _queue_cap_mask(eligible, self.task_queue, a["task_req"],
+                               qrem, a["thresholds"], a["scalar_dim_mask"],
+                               self.q_perm, self.q_seg_start, self.qs_q,
+                               self.qs_req)
+
+    def order(self, st: _State, eligible, capped: bool, placeable=None):
+        """This round's admission priority [T] and the eligible tasks left
+        under the DRF / hdrf caps and the queue caps. ``capped=False`` is
+        the work-conserving overflow pass: it relaxes deserved but NEVER
+        the hard capability quota. ``placeable`` (hdrf only): the rows
+        some node can take this round, so that a task no node can take
+        does not hold its sibling group's min key or pin its subtree's
+        budget."""
+        if self.use_hdrf:
+            r_rank, eligible = self.hdrf_rank_cap(eligible & placeable,
+                                                  st.jobres)
+        elif self.use_drf_order:
+            r_rank = self.drf_rank(st.jobres)
+            eligible = self.drf_cap(eligible, st.jobres)
+        else:
+            r_rank = self.rank
+        if self.use_queue_cap:
+            bound = self.deserved if capped else self.a["queue_capability"]
+            eligible = eligible & self.queue_cap(
+                eligible, st.qalloc, bound,
+                r_rank if self.use_drf_order else None)
+        return r_rank, eligible
+
+    def account(self, st: _State, tasks, sign: int) -> None:
+        """Add (sign 1) or take back (sign -1) ``tasks``' requests in the
+        per-queue and per-job totals; pipelined tasks count toward queue
+        allocated too."""
+        req = self.a["task_req"] * tasks[:, None]
+        if self.use_queue_cap:
+            q = _segment_sum(req, self.task_queue, self.Q)
+            st.qalloc = st.qalloc + q if sign > 0 else st.qalloc - q
+        if self.use_drf_order:
+            j = _segment_sum(req, self.tj, self.J)
+            st.jobres = st.jobres + j if sign > 0 else st.jobres - j
+
+    def record(self, st: _State, new_assign, use_future: bool):
+        """Record a round's admissions (``new_assign`` [T] node or -1);
+        returns the admitted rows."""
+        got = new_assign >= 0
+        st.assigned = torch.where(got, new_assign.to(torch.int32),
+                                  st.assigned)
+        st.kind = torch.where(got, 1 if use_future else 0, st.kind)
+        self.account(st, got, 1)
+        return got
+
+    def job_ready(self, st: _State):
+        """Gang check [J]: ready base + allocated (kind 0, counts_ready)
+        tasks reach min_available."""
+        a = self.a
+        placed = (st.assigned >= 0) & (st.kind == 0)
+        alloc_counts = _segment_sum(
+            placed.to(torch.int32) * a["task_counts_ready"].to(torch.int32),
+            self.tj, self.J)
+        return ((a["job_ready_base"] + alloc_counts) >= a["job_min"]) \
+            & a["job_valid"]
+
+    def gang_fixpoint(self, st: _State, run_phases, credit,
+                      max_gang_iters: int) -> None:
+        """The bounded gang fixpoint: ``run_phases(excluded)`` runs the
+        admission phases with the jobs in ``excluded`` [J] sitting out;
+        then every job that got allocations but is not ready is reverted
+        (Statement.Discard: ``credit(revert_task)`` gives its tasks' nodes
+        back; pipelined tasks are not statement ops and survive). Reruns
+        while a job got reverted (its freed resources may admit others) or
+        deferred jobs await their solo retry: a first revert leaves a job
+        eligible, a second defers it to a one-at-a-time queue in rank
+        order, and a solo retry that reverts again excludes it for good."""
+        a, tj, J = self.a, self.tj, self.J
+        rank = self.rank
+        T = rank.shape[0]
+        dev = rank.device
+        # job order position for the gang-exclusion tie-break: first valid
+        # task's rank (static snapshot order)
+        job_first_rank = torch.full((J,), T, dtype=rank.dtype, device=dev) \
+            .scatter_reduce(0, tj, torch.where(a["task_valid"], rank, T),
+                            "amin", include_self=True)
+        arange_j = torch.arange(J, device=dev)
+        excluded = ~a["job_valid"]
+        revert_count = torch.zeros(J, dtype=torch.int32, device=dev)
+        deferred = torch.zeros(J, dtype=torch.bool, device=dev)
+        processed = torch.zeros(J, dtype=torch.bool, device=dev)
+        any_more = True
+        it = 0
+        while any_more and it < max_gang_iters:
+            unproc = deferred & ~processed & ~excluded
+            cur = torch.argmin(torch.where(unproc, job_first_rank, BIG_KEY))
+            solo = unproc & (arange_j == cur)
+            barred = deferred & ~solo
+            run_phases(excluded | barred)
+            placed = (st.assigned >= 0) & (st.kind == 0)
+            has_alloc = _segment_sum(placed.to(torch.int32), tj, J) > 0
+            revert_job = ~self.job_ready(st) & a["job_valid"] & ~excluded \
+                & ~barred & has_alloc
+            revert_task = revert_job[tj] & placed
+            credit(revert_task)
+            self.account(st, revert_task, -1)
+            st.assigned = torch.where(revert_task, -1, st.assigned)
+            st.kind = torch.where(revert_task, -1, st.kind)
+            revert_count = revert_count + revert_job.to(torch.int32)
+            excluded = excluded | (solo & revert_job)
+            processed = processed | (solo & torch.any(unproc))
+            deferred = deferred | (revert_job & (revert_count >= 2))
+            any_more = bool(torch.any(revert_job)
+                            | torch.any(deferred & ~processed & ~excluded))
+            it += 1
 
 
 def solve_allocate(arrays: Dict[str, object],
@@ -539,15 +739,12 @@ def solve_allocate(arrays: Dict[str, object],
 
     T = a["task_init_req"].shape[0]
     N = a["node_idle"].shape[0]
-    J = a["job_min"].shape[0]
     R = a["task_init_req"].shape[1]
     thr = a["thresholds"]
     scalar_mask = a["scalar_dim_mask"]
     tj = a["task_job"].long()
     sig_feas = a["sig_masks"][a["task_sig"].long()] \
         & a["node_valid"][None, :]                                  # [T,N]
-    rank = a["task_rank"]
-    counts_ready = a["task_counts_ready"].to(torch.int32)
     task_req = a["task_req"]
     init_req = a["task_init_req"].contiguous()
 
@@ -560,37 +757,18 @@ def solve_allocate(arrays: Dict[str, object],
         sig_i8, inv_alloc, fused_pars, node_static = fused_setup(
             sig_feas, a["node_alloc"], params, R)
 
-    if use_queue_cap:
-        total = torch.sum(
-            a["node_alloc"] * a["node_valid"][:, None].to(torch.float32),
-            dim=0)
-        Q, deserved, task_queue, q_perm, q_seg_start = queue_cap_state(
-            a, rank, thr, total, ease_unrequested=work_conserving)
-        qalloc0 = a["queue_allocated"]
-        # static-sort gathers hoisted out of the round loop
-        qs_q = task_queue[q_perm]
-        qs_req = task_req[q_perm]
-    else:
-        qalloc0 = torch.zeros((1, R), dtype=torch.float32, device=dev)
-
+    total = torch.sum(
+        a["node_alloc"] * a["node_valid"][:, None].to(torch.float32),
+        dim=0) if use_queue_cap else None
     use_hdrf = use_drf_order and use_hdrf_order
-    if use_drf_order:
-        jobres0, drf_rank, drf_cap = drf_state(a, rank)
-        if use_hdrf:
-            # hierarchical mode: the comparator AND the progressive cap
-            # both come from the weighted tree — one tree recursion per
-            # round feeds the re-rank and the per-ancestor-level gate
-            from .hdrf import hdrf_state
-            hdrf_rank_cap = hdrf_state(a, rank)
-    else:
-        jobres0 = torch.zeros((1, R), dtype=torch.float32, device=dev)
+    fair = _Fairness(a, total, use_queue_cap, use_drf_order, use_hdrf,
+                     ease_unrequested=work_conserving)
 
     def phase_rounds(st: _State, use_future: bool, capped: bool = True,
                      gate=None) -> None:
         """Run admission rounds to fixpoint against idle (allocate) or
         future-idle (pipeline), updating ``st`` in place. capped=False is
-        the work-conserving overflow pass: fair-share deserved caps are
-        relaxed (hard capability quotas still bind)."""
+        the work-conserving overflow pass."""
         # skip the phase outright when no task is still eligible; `gate`
         # adds a caller-side cheap impossibility check
         any_eligible = torch.any(a["task_valid"] & (st.assigned < 0)
@@ -604,13 +782,11 @@ def solve_allocate(arrays: Dict[str, object],
             eligible = (a["task_valid"] & (st.assigned < 0)
                         & ~st.excluded[tj])
             used_now = a["node_used"] + (a["node_idle"] - st.idle)
-            feas0 = None
+            feas0 = placeable = None
             if use_hdrf:
-                # placeability prefilter: a task no node can take this
-                # round must not hold its sibling group's min key or pin
-                # its subtree's budget. The dense path reuses this round's
-                # feasibility matrix; the fused path pays one extra kernel
-                # pass
+                # placeability prefilter: the dense path reuses this
+                # round's feasibility matrix; the fused path pays one
+                # extra kernel pass
                 if use_fused:
                     placeable = hdrf_placeable(
                         init_req, avail, used_now, inv_alloc, node_static,
@@ -622,27 +798,7 @@ def solve_allocate(arrays: Dict[str, object],
                     placeable = torch.any(
                         feas0 & (st.npods < a["node_max_pods"])[None, :],
                         dim=1)
-                r_rank, eligible = hdrf_rank_cap(eligible & placeable,
-                                                 st.jobres)
-            elif use_drf_order:
-                r_rank = drf_rank(st.jobres)
-                eligible = drf_cap(eligible, st.jobres)
-            else:
-                r_rank = rank
-            if use_queue_cap:
-                # the overflow pass relaxes deserved but NEVER the hard
-                # capability quota
-                bound = deserved if capped else a["queue_capability"]
-                qrem = torch.clamp(bound - st.qalloc, min=0.0)
-                if use_drf_order:
-                    qp = _lexsort((r_rank, task_queue))
-                    eligible = eligible & _queue_cap_mask(
-                        eligible, task_queue, task_req, qrem, thr,
-                        scalar_mask, qp, q_seg_start)
-                else:
-                    eligible = eligible & _queue_cap_mask(
-                        eligible, task_queue, task_req, qrem, thr,
-                        scalar_mask, q_perm, q_seg_start, qs_q, qs_req)
+            r_rank, eligible = fair.order(st, eligible, capped, placeable)
             if use_fused:
                 new_assign, debit, pod_inc = _admission_round_fused(
                     eligible, a, avail, used_now, sig_feas, sig_i8,
@@ -660,17 +816,7 @@ def solve_allocate(arrays: Dict[str, object],
                     eligible, feas, score, init_req, task_req, avail,
                     r_rank, thr, scalar_mask, st.npods,
                     a["node_max_pods"], per_node_cap, herd_mode)
-            got = new_assign >= 0
-            st.assigned = torch.where(got, new_assign.to(torch.int32),
-                                      st.assigned)
-            st.kind = torch.where(got, 1 if use_future else 0, st.kind)
-            if use_queue_cap:
-                # pipelined tasks count toward queue allocated too
-                st.qalloc = st.qalloc + _segment_sum(
-                    task_req * got[:, None], task_queue, Q)
-            if use_drf_order:
-                st.jobres = st.jobres + _segment_sum(
-                    task_req * got[:, None], tj, J)
+            got = fair.record(st, new_assign, use_future)
             if use_future:
                 st.pipe = st.pipe + debit
             else:
@@ -679,38 +825,12 @@ def solve_allocate(arrays: Dict[str, object],
             st.rounds += 1
             changed = bool(torch.any(got))
 
-    # job order position for the gang-exclusion tie-break: first valid
-    # task's rank (static snapshot order)
-    job_first_rank = torch.full((J,), T, dtype=rank.dtype, device=dev) \
-        .scatter_reduce(0, tj, torch.where(a["task_valid"], rank, T),
-                        "amin", include_self=True)
     # loop-invariant: pipeline phases only matter when some node's
     # FutureIdle can exceed its Idle
     has_future = torch.any(a["node_extra_future"] > 0.0)
-    arange_j = torch.arange(J, device=dev)
 
-    excluded = ~a["job_valid"]
-    st = _State(idle=a["node_idle"], pipe=torch.zeros_like(a["node_idle"]),
-                npods=a["node_npods"], qalloc=qalloc0, jobres=jobres0,
-                assigned=torch.full((T,), -1, dtype=torch.int32, device=dev),
-                kind=torch.full((T,), -1, dtype=torch.int32, device=dev),
-                excluded=excluded, rounds=0)
-    revert_count = torch.zeros(J, dtype=torch.int32, device=dev)
-    deferred = torch.zeros(J, dtype=torch.bool, device=dev)
-    processed = torch.zeros(J, dtype=torch.bool, device=dev)
-    any_more = True
-    it = 0
-    # bounded gang fixpoint: rerun phases while any job got reverted (its
-    # freed resources may admit other jobs) or deferred jobs await their
-    # solo retry
-    while any_more and it < max_gang_iters:
-        # deferred-retry queue: jobs that reverted twice sit out while the
-        # best-ranked of them retries ALONE
-        unproc = deferred & ~processed & ~excluded
-        cur = torch.argmin(torch.where(unproc, job_first_rank, BIG_KEY))
-        solo = unproc & (arange_j == cur)
-        barred = deferred & ~solo
-        st.excluded = excluded | barred
+    def run_phases(excluded) -> None:
+        st.excluded = excluded
         phase_rounds(st, use_future=False)
         phase_rounds(st, use_future=True, gate=has_future)
         if use_queue_cap and work_conserving:
@@ -725,63 +845,31 @@ def solve_allocate(arrays: Dict[str, object],
                 # mask (the mask is monotone in the queue bound)
                 rem = (a["task_valid"] & (st.assigned < 0)
                        & ~st.excluded[tj])
-                qrem_now = torch.clamp(deserved - st.qalloc, min=0.0)
-                elig_capped = _queue_cap_mask(
-                    rem, task_queue, task_req, qrem_now, thr,
-                    scalar_mask, q_perm, q_seg_start, qs_q, qs_req)
-                capped_out = torch.any(rem & ~elig_capped)
+                capped_out = torch.any(
+                    rem & ~fair.queue_cap(rem, st.qalloc, fair.deserved))
                 phase_rounds(st, use_future=False, capped=False,
                              gate=capped_out)
                 phase_rounds(st, use_future=True, capped=False,
                              gate=capped_out & has_future)
-        assigned, kind = st.assigned, st.kind
 
-        # gang check: allocated (kind 0, counts_ready) per job
-        placed = (assigned >= 0) & (kind == 0)
-        alloc_counts = _segment_sum(
-            placed.to(torch.int32) * counts_ready, tj, J)
-        ready = (a["job_ready_base"] + alloc_counts) >= a["job_min"]
-        ready = ready & a["job_valid"]
-        # revert unready jobs that DID get allocations (Statement.Discard);
-        # pipelined tasks are not statement ops, so they survive discard
-        has_alloc = _segment_sum(placed.to(torch.int32), tj, J) > 0
-        revert_job = ~ready & a["job_valid"] & ~excluded & ~barred \
-            & has_alloc
-        revert_task = revert_job[tj] & placed
-        node = torch.clamp(assigned, min=0).long()
-        credit = _segment_sum(task_req * revert_task[:, None], node, N)
-        pod_credit = _segment_sum(revert_task.to(torch.int32), node, N)
-        st.idle = st.idle + credit
-        st.npods = st.npods - pod_credit
-        if use_queue_cap:
-            st.qalloc = st.qalloc - _segment_sum(
-                task_req * revert_task[:, None], task_queue, Q)
-        if use_drf_order:
-            st.jobres = st.jobres - _segment_sum(
-                task_req * revert_task[:, None], tj, J)
-        st.assigned = torch.where(revert_task, -1, assigned)
-        st.kind = torch.where(revert_task, -1, kind)
-        # retry policy: a first revert leaves the job eligible; a second
-        # defers it to the one-at-a-time queue; a solo retry that reverts
-        # again is excluded for good
-        revert_count = revert_count + revert_job.to(torch.int32)
-        excluded = excluded | (solo & revert_job)
-        processed = processed | (solo & torch.any(unproc))
-        deferred = deferred | (revert_job & (revert_count >= 2))
-        any_more = bool(torch.any(revert_job)
-                        | torch.any(deferred & ~processed & ~excluded))
-        it += 1
+    def credit(revert_task) -> None:
+        node = torch.clamp(st.assigned, min=0).long()
+        st.idle = st.idle + _segment_sum(task_req * revert_task[:, None],
+                                         node, N)
+        st.npods = st.npods - _segment_sum(revert_task.to(torch.int32),
+                                           node, N)
 
-    assigned, kind = st.assigned, st.kind
-    alloc_counts = _segment_sum(
-        ((assigned >= 0) & (kind == 0)).to(torch.int32) * counts_ready,
-        tj, J)
-    job_ready = ((a["job_ready_base"] + alloc_counts) >= a["job_min"]) \
-        & a["job_valid"]
+    st = _State(idle=a["node_idle"], pipe=torch.zeros_like(a["node_idle"]),
+                npods=a["node_npods"], qalloc=fair.qalloc0,
+                jobres=fair.jobres0,
+                assigned=torch.full((T,), -1, dtype=torch.int32, device=dev),
+                kind=torch.full((T,), -1, dtype=torch.int32, device=dev),
+                excluded=~a["job_valid"], rounds=0)
+    fair.gang_fixpoint(st, run_phases, credit, max_gang_iters)
     return SolveResult(
-        assigned=assigned, kind=kind, job_ready=job_ready,
+        assigned=st.assigned, kind=st.kind, job_ready=fair.job_ready(st),
         rounds=torch.tensor(st.rounds, dtype=torch.int32, device=dev),
-        compact=_compact(assigned, kind, N))
+        compact=_compact(st.assigned, st.kind, N))
 
 
 # ---------------------------------------------------------------------------

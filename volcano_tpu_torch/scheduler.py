@@ -58,15 +58,15 @@ class Scheduler:
                  action_deadline_s: Optional[float] = None,
                  breaker_failures: int = 3,
                  breaker_cooldown_s: float = 30.0,
-                 solver_mode: Optional[str] = None):
+                 solver_mode: Optional[str] = None,
+                 sharded_byte_budget: int = 0):
         if compile_cache_dir or prewarm:
             raise NotImplementedError(
                 "compile_cache_dir / prewarm need the precompile pipeline, "
                 "which is not ported yet (ROADMAP A8)")
-        if solver_mode not in (None, "packed"):
-            raise NotImplementedError(
-                f"solver_mode {solver_mode!r} needs the sharded solver, "
-                "which is not ported yet (ROADMAP A7)")
+        if solver_mode not in (None, "packed", "sharded", "auto"):
+            raise ValueError(f"solver_mode must be None, 'packed', "
+                             f"'sharded' or 'auto': {solver_mode!r}")
         # adaptive host-loop node sampling knob, instance-scoped
         # (cmd/scheduler/app/options/options.go:37-40)
         from .utils import NodeSampler
@@ -94,8 +94,15 @@ class Scheduler:
         self.action_deadline_s = action_deadline_s
         self._watchdog = ActionWatchdog(action_deadline_s) \
             if action_deadline_s else None
+        # solver-mode preference (None keeps per-action conf routing):
+        # "packed" pins the single-device solver, "sharded" the node-axis
+        # sharded solver over the sharded arena, "auto" shards exactly when
+        # the padded problem's device-resident footprint exceeds the byte
+        # budget (framework.interface.Action.resolve_mode)
         if solver_mode:
             cache.solver_mode = solver_mode
+        if sharded_byte_budget:
+            cache.sharded_byte_budget = int(sharded_byte_budget)
         # the allocate action's dispatch/collect overlap; decisions are
         # identical with it on or off
         cache.pipeline_solver = bool(pipeline_solver)
@@ -307,17 +314,25 @@ class Scheduler:
             if reason:
                 metrics.order_fallbacks_total.inc(
                     labels={"reason": str(reason)})
-        # device-resident arena accounting (ops.device_cache): bytes
-        # shipped per steady session and the hit rate say whether the
-        # delta upload is engaged (per-cycle bytes come from the allocate
-        # action's timing; the gauges are the arena's cumulative view)
-        dc = getattr(self.cache, "device_cache", None)
-        if dc is not None and dc.sessions:
-            lbl = {"mode": "packed"}
-            timing["arena_hit_rate"] = dc.arena_hit_rate
-            metrics.arena_bytes_shipped.set(
-                timing.get("arena_bytes_shipped", dc.last_shipped_bytes),
-                labels=lbl)
+        # device-resident arena accounting (ops.device_cache), exported
+        # per solver mode: a sharded session's bytes land on the sharded
+        # arena's series, never on the packed one. Bytes shipped per
+        # steady session and the hit rate say whether the delta upload is
+        # engaged (per-cycle bytes come from the allocate action's timing;
+        # the gauges are each arena's cumulative view)
+        active_mode = timing.get("arena_mode")
+        for mode, attr in (("packed", "device_cache"),
+                           ("sharded", "sharded_device_cache")):
+            dc = getattr(self.cache, attr, None)
+            if dc is None or not dc.sessions:
+                continue
+            lbl = {"mode": mode}
+            if mode == active_mode or active_mode is None:
+                timing["arena_hit_rate"] = dc.arena_hit_rate
+            per_cycle = (timing.get("arena_bytes_shipped",
+                                    dc.last_shipped_bytes)
+                         if mode == active_mode else dc.last_shipped_bytes)
+            metrics.arena_bytes_shipped.set(per_cycle, labels=lbl)
             metrics.arena_bytes_shipped_total.set(
                 dc.total_shipped_bytes, labels=lbl)
             metrics.arena_hit_rate.set(dc.arena_hit_rate, labels=lbl)
@@ -329,6 +344,10 @@ class Scheduler:
                 dc.invalidations, labels=lbl)
             metrics.arena_params_repins_total.set(
                 dc.params_repins, labels=lbl)
+            if mode == "sharded":
+                for d, b in enumerate(dc.last_shard_bytes):
+                    metrics.arena_shard_bytes_shipped.set(
+                        b, labels={"shard": str(d)})
         br = getattr(self.cache, "breaker", None)
         if br is not None:
             # the degradation ladder made observable per cycle: 0=closed
