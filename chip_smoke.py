@@ -100,7 +100,24 @@ checkout, then, printing one JSON line per phase:
              identical to a packed twin's, every launch of the round's
              choice and of the placeability prefilter held against the
              plain version; the kernel timed at the shard shape;
-13. the kernels line, then the result line.
+13. reschedule - the global rescheduler (volcano_tpu_torch.reschedule) on
+             the cycle phase's 2000 nodes of 32 cpu / 128Gi, holding 1400
+             running gangs of 10 pods of 4 cpu / 8Gi (7 gangs a node, 4
+             cpu free on each) and one pending 16-cpu pod that fits
+             nowhere, through Scheduler.run_once under a reschedule conf
+             (maxMoves 8, maxDisruptionPerJob 2, minImprovement 0.001):
+             the pass must execute a plan (a skip, a failed solve or a
+             rejected plan fails the run) within its budget and per-job
+             cap, with fragmentation down and every evicted pod carrying
+             the migration reason, and equal to the JAX package's record
+             on this layout (hole n00000, 3 moves, stranded fraction 1.0
+             -> 0.998); every fused_choice launch of the defrag solve
+             (about 14k running tasks x 2000 nodes) is held bit for bit
+             against the plain version. A second pass shows the arena's
+             bytes on reuse; the layout cut to 60 nodes runs through the
+             same pass on the card and on the host with identical
+             evictions and plan; the kernel is timed at the defrag shape;
+14. the kernels line, then the result line.
 
 `--phases kernel,edges` runs a subset (device and build always run) and
 then prints neither of the last two lines.
@@ -907,7 +924,7 @@ class StoreCluster:
                "launches": launches, "prefilter_launches": prefilter,
                **{k: t[k] for k in CYCLE_KEYS if k in t}}
         for k in ("flatten_mode", "flatten_fallback_reason", "order_mode",
-                  "arena_bytes_shipped", "delta_chunks", "delta_fused",
+                  "arena_bytes_shipped", "delta_chunks",
                   "arena_full_ship", "host_fallback", "breaker_state"):
             if k in t:
                 out[k] = t[k]
@@ -1207,6 +1224,13 @@ def phase_cycle(dev, scale=None) -> dict:
                 or row.get("order_mode") != "event":
             raise AssertionError(f"steady cycle {s}: full re-ship, cold "
                                  f"flatten or ordering fallback ({row})")
+        # a delta ships exactly its dirty chunks: values and an int32
+        # index each
+        chunk_bytes = c.cache.device_cache.chunk * 4 + 4
+        if row["arena_bytes_shipped"] != row["delta_chunks"] * chunk_bytes:
+            raise AssertionError(f"steady cycle {s}: "
+                                 f"{row['arena_bytes_shipped']} bytes for "
+                                 f"{row['delta_chunks']} dirty chunks")
         rows.append(row)
     # the solves read views of the resident buffers and the scatters
     # write them in place: after the run they must still equal the
@@ -2156,8 +2180,235 @@ def phase_sharded(dev, scale=None) -> dict:
     return out
 
 
+#: the reschedule phase: the cycle cell's 2000 nodes of 32 cpu / 128Gi
+#: holding 1400 running gangs of 10 pods of 4 cpu / 8Gi, pod p of the 14000
+#: on node p % 2000 and in gang p % 1400 (7 pods of 7 different gangs a
+#: node, 4 cpu free on every node), and one pending 16-cpu / 16Gi pod that
+#: fits nowhere. The knobs are bench.py reschedule_defrag()'s, with
+#: minImprovement 0.001: one hole in 2000 nodes moves the stranded
+#: fraction by only 16 / 8000 = 0.002. ``expect`` is the JAX package's
+#: plan record on this layout (the proposed count may differ where
+#: equal-score targets tie); ``small`` the layout the card-vs-host check
+#: cuts it to.
+RESCHED = dict(n_nodes=2000, n_gangs=1400, gang=10, max_moves=8,
+               max_disruption=2, min_improvement=0.001,
+               expect=dict(hole_node="n00000", selected=3, executed=3,
+                           max_disruption=1, frag_before=1.0,
+                           frag_after=0.998, largest_after=16000.0),
+               proposed_reference=13996,
+               small=dict(n_nodes=60, n_gangs=42, min_improvement=0.01))
+
+RESCHED_CONF = """
+actions: "reschedule"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+- plugins:
+  - name: drf
+  - name: predicates
+  - name: proportion
+  - name: binpack
+  - name: nodeorder
+configurations:
+- name: reschedule
+  arguments:
+    reschedule.interval: 1
+    reschedule.maxMoves: {moves}
+    reschedule.maxDisruptionPerJob: {cap}
+    reschedule.minImprovement: {imp}
+"""
+
+
+def defrag_store(store, models, ann_key, n_nodes: int, n_gangs: int,
+                 gang: int = 10) -> None:
+    """Fill ``store`` (built from ``models``, either package's) with the
+    fragmented layout of RESCHED: nodes ``n00000``... of 32 cpu / 128Gi,
+    ``n_gangs`` running gangs of ``gang`` pods of 4 cpu / 8Gi (pod p on
+    node p % n_nodes, in gang p % n_gangs) and one pending 16-cpu / 16Gi
+    pod in namespace ``defrag``."""
+    m = models
+    store.apply("queues", m.Queue(name="q0", spec=m.QueueSpec(weight=1)))
+    rl = {"cpu": "32", "memory": "128Gi", "pods": "110"}
+    for i in range(n_nodes):
+        store.create("nodes", m.Node(name=f"n{i:05d}", allocatable=rl,
+                                     capacity=dict(rl)))
+
+    def group(name, size, phase):
+        store.create("podgroups", m.PodGroup(
+            name=name, namespace="defrag",
+            spec=m.PodGroupSpec(min_member=size, queue="q0"),
+            status=m.PodGroupStatus(phase=phase)))
+
+    for g in range(n_gangs):
+        group(f"g{g:04d}", gang, m.PodGroupPhase.RUNNING)
+    for p in range(n_gangs * gang):
+        g = p % n_gangs
+        store.create("pods", m.Pod(
+            name=f"g{g:04d}-{p // n_gangs}", namespace="defrag",
+            node_name=f"n{p % n_nodes:05d}", phase="Running",
+            annotations={ann_key: f"g{g:04d}"},
+            containers=[{"requests": {"cpu": "4", "memory": "8Gi"}}]))
+    group("big", 1, m.PodGroupPhase.INQUEUE)
+    store.create("pods", m.Pod(
+        name="big-0", namespace="defrag", phase="Pending",
+        annotations={ann_key: "big"},
+        containers=[{"requests": {"cpu": "16", "memory": "16Gi"}}]))
+
+
+def defrag_scheduler(dev, sc):
+    """The port's Scheduler under RESCHED_CONF over a fresh defrag_store:
+    (store, cache, scheduler). Evictions go through the cache's own
+    evictor, so they land in the store (deletion stamp + condition)."""
+    from volcano_tpu_torch import models
+    from volcano_tpu_torch.api import POD_GROUP_ANNOTATION
+    from volcano_tpu_torch.cache import SchedulerCache
+    from volcano_tpu_torch.client import ClusterStore
+    from volcano_tpu_torch.scheduler import Scheduler
+
+    store = ClusterStore()
+    defrag_store(store, models, POD_GROUP_ANNOTATION, sc["n_nodes"],
+                 sc["n_gangs"], sc.get("gang", 10))
+    cache = SchedulerCache(store, device=dev)
+    cache.run()
+    sched = Scheduler(cache, scheduler_conf=RESCHED_CONF.format(
+        moves=sc["max_moves"], cap=sc["max_disruption"],
+        imp=sc["min_improvement"]))
+    return store, cache, sched
+
+
+def evicted_pods(store) -> list:
+    """(name, node, eviction message) of every pod with a deletion stamp,
+    sorted."""
+    out = []
+    for p in store.list("pods", namespace="defrag"):
+        if p.deletion_timestamp is None:
+            continue
+        msgs = [c.get("message", "") for c in p.conditions
+                if c.get("reason") == "Evict"]
+        out.append((p.name, p.node_name, msgs[-1] if msgs else ""))
+    return sorted(out)
+
+
+def reschedule_pass(sched, cache, require_plan: bool = True) -> dict:
+    """One Scheduler.run_once with the kernel's count set to 0 just before
+    and read just after: the pass's timing keys, plan record, launches,
+    solve rounds and arena bytes. A failed solve fails the phase, and so
+    do a skipped pass and a rejected plan under ``require_plan``."""
+    from volcano_tpu_torch.ops import fused_choice as fc
+    n_log = len(cache.reschedule_log)
+    fc.fused_choice.launches = 0
+    t0 = time.perf_counter()
+    sched.run_once()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = fc.fused_choice.launches
+    t = sched.last_cycle_timing
+    solved = len(cache.reschedule_log) == n_log + 1
+    rec = cache.reschedule_log[-1] if solved else None
+    skipped = t.get("reschedule_skipped")
+    if skipped == "solve_failed" or t.get("reschedule_error") or (
+            require_plan and (skipped or rec is None
+                              or rec["rejected"] is not None)):
+        raise AssertionError(f"the reschedule pass executed no plan: "
+                             f"skipped {skipped!r}, error "
+                             f"{t.get('reschedule_error')!r}, plan {rec}")
+    dc = cache.reschedule_state.device_cache
+    return {"cycle_ms": ms, "launches": launches, "solved": solved,
+            "rounds": cache.reschedule_state.rounds if solved else None,
+            "arena_bytes_shipped": dc.last_shipped_bytes if solved else None,
+            "arena_full_ship": dc.last_full_ship if solved else None,
+            "arena_device": str(dc.device) if dc is not None else None,
+            **{k: v for k, v in t.items() if k.startswith("reschedule_")},
+            "record": rec}
+
+
+def check_plan(rec, evicted, sc, what: str) -> None:
+    """Budget, per-job cap, fragmentation down, and every evicted pod
+    carries MIGRATION_REASON."""
+    from volcano_tpu_torch.reschedule import MIGRATION_REASON
+    if not (rec["selected"] <= sc["max_moves"]
+            and rec["max_disruption"] <= sc["max_disruption"]
+            and rec["frag_after"] < rec["frag_before"]
+            and rec["executed"] == rec["selected"] == len(evicted)):
+        raise AssertionError(f"{what}: plan out of bounds: {rec}, "
+                             f"{len(evicted)} evicted")
+    if not all(msg.startswith(MIGRATION_REASON) for *_, msg in evicted):
+        raise AssertionError(f"{what}: an eviction lacks the migration "
+                             f"reason: {evicted}")
+
+
+def phase_reschedule(dev, scale=None) -> dict:
+    """The global rescheduler's defragmentation pass at the cycle cell's
+    cluster size (RESCHED): one pass with every fused_choice launch of
+    its defrag solve held against the plain version, its plan held to
+    the JAX package's record, a second pass, then the small layout
+    through the same pass on the card and on the host (the same evicted
+    pods and plan record), and the kernel timed at the defrag shape."""
+    sc = dict(RESCHED, **(scale or {}))
+    t0 = time.perf_counter()
+    store, cache, sched = defrag_scheduler(dev, sc)
+    build_s = time.perf_counter() - t0
+    with KernelAudit() as audit:
+        first = reschedule_pass(sched, cache)
+    evicted = evicted_pods(store)
+    rec = first["record"]
+    check_plan(rec, evicted, sc, "first pass")
+    if first["launches"] <= 0 or len(audit.shapes) != first["launches"]:
+        raise AssertionError(f"the defrag solve launched "
+                             f"{first['launches']} kernels, "
+                             f"{len(audit.shapes)} audited")
+    if first["arena_device"] != str(dev):
+        raise AssertionError(f"the action's arena is on "
+                             f"{first['arena_device']}, not {dev}")
+    expect = sc.get("expect") or {}
+    off = {k: (rec[k], v) for k, v in expect.items() if rec[k] != v}
+    if off:
+        raise AssertionError(f"the plan differs from the JAX package's "
+                             f"record (got, want): {off}")
+    if any(node != rec["hole_node"] for _, node, _ in evicted):
+        raise AssertionError(f"a move left another node than the hole: "
+                             f"{evicted}")
+    emit({"phase": "reschedule", "pass": 1, "nodes": sc["n_nodes"],
+          "running_pods": sc["n_gangs"] * sc.get("gang", 10),
+          "build_s": build_s, "audit": audit.summary(), "equal": True,
+          "evicted": [e[0] for e in evicted],
+          "proposed_reference": sc.get("proposed_reference"),
+          "matches_reference": bool(expect), **first})
+    # the second pass runs against the first one's evictions (still
+    # terminating): it may find another plan or reject one, but its solve
+    # must not fail; it shows the arena's bytes on a pass that reuses it
+    second = reschedule_pass(sched, cache, require_plan=False)
+    rec2 = second["record"]
+    if rec2 is not None and rec2["rejected"] is None:
+        check_plan(rec2, [e for e in evicted_pods(store)
+                          if e not in evicted], sc, "second pass")
+    emit({"phase": "reschedule", "pass": 2, **second})
+    out = {"first": first, "second": second}
+    small = sc.get("small")
+    if small:
+        pair = {}
+        for where in (dev, "cpu"):
+            s2 = dict(sc, **small)
+            st, ca, sch = defrag_scheduler(where, s2)
+            row = reschedule_pass(sch, ca)
+            check_plan(row["record"], evicted_pods(st), s2, f"small {where}")
+            rec2 = dict(row["record"], solve_ms=None)
+            pair[str(where)] = (evicted_pods(st), rec2)
+        card, host = pair[str(dev)], pair["cpu"]
+        if card != host:
+            raise AssertionError(f"the small layout's pass differs card vs "
+                                 f"host: {card} != {host}")
+        emit({"phase": "reschedule_small", "nodes": small["n_nodes"],
+              "evicted": [e[0] for e in card[0]], "record": card[1],
+              "identical_to_host": True})
+    T, N, R, fam, _ = audit.shapes[0]
+    out["kernel"] = kernel_row(kernel_inputs(500, T, N, R, dev), fam,
+                               "the defrag solve's shape")
+    return out
+
+
 PHASES = ("kernel", "edges", "small", "solve", "profile", "cycle", "hdrf",
-          "evict", "sequential", "sharded")
+          "evict", "sequential", "sharded", "reschedule")
 
 
 def main() -> int:
@@ -2193,19 +2444,22 @@ def main() -> int:
         ("small", phase_small), ("solve", phase_solve),
         ("profile", phase_profile), ("cycle", phase_cycle),
         ("hdrf", phase_hdrf), ("evict", phase_evict),
-        ("sequential", phase_sequential), ("sharded", phase_sharded))
+        ("sequential", phase_sequential), ("sharded", phase_sharded),
+        ("reschedule", phase_reschedule))
         if name in phases}
     emit({"phase": "seconds", **seconds})
     if set(phases) != set(PHASES):
         return 0
-    krows, cyc, hdrf, evict, sharded = (
-        out[k] for k in ("kernel", "cycle", "hdrf", "evict", "sharded"))
+    krows, cyc, hdrf, evict, sharded, resched = (
+        out[k] for k in ("kernel", "cycle", "hdrf", "evict", "sharded",
+                         "reschedule"))
     main_launches = out["solve"][1]
     head = next(r for r in krows if r["R"] == 2 and r["eligible_rows"]
                 > 0.5 * r["T"] and r["families"] == ["binpack"])
     # the main path: the scheduling cycle's measured burst and timed
-    # steady cycles, the hdrf cycles, the eviction cycles and the sharded
-    # cycles, each counted from 0 (the sequential mode launches no kernel)
+    # steady cycles, the hdrf cycles, the eviction cycles, the sharded
+    # cycles and the two reschedule passes, each counted from 0 (the
+    # sequential mode launches no kernel)
     cycle_rows = [cyc["burst"]] + cyc["steady"]
     evict_launches = sum(r["launches"] + r["next_cycle_launches"]
                          for r in evict)
@@ -2215,12 +2469,15 @@ def main() -> int:
     if sharded_launches <= 0:
         raise AssertionError("the sharded cycles launched no kernel")
     shard_k = sharded["kernel"]
+    resched_launches = sum(resched[k]["launches"]
+                           for k in ("first", "second"))
+    resched_k = resched["kernel"]
     emit({"kernels": [{
         "name": "fused_choice", "route": "cuda",
         "source": "volcano_tpu_torch/csrc/fused_choice.cu",
         "replaces": "volcano_tpu/ops/pallas_kernels.py:201",
         "launches": sum(r["launches"] for r in cycle_rows + hdrf["rows"])
-        + evict_launches + sharded_launches,
+        + evict_launches + sharded_launches + resched_launches,
         "launches_sharded": sharded_launches,
         "launches_sharded_hdrf_prefilter":
             sharded["hdrf"]["prefilter_launches"],
@@ -2232,8 +2489,10 @@ def main() -> int:
         "launches_hdrf_prefilter": sum(r["prefilter_launches"]
                                        for r in hdrf["rows"]),
         "launches_evict_cycles": evict_launches,
+        "launches_reschedule": resched_launches,
         "launches_headline_solve": main_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in krows + [shard_k]),
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in krows + [shard_k, resched_k]),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None,
@@ -2244,7 +2503,10 @@ def main() -> int:
                         "shards": sharded["cycles"]["rows"][0]["shards"],
                         "ms": shard_k["ms"], "plain_ms": shard_k["plain_ms"],
                         "bound_ms": shard_k["bound_ms"],
-                        "bound_by": shard_k["bound_by"]}}]})
+                        "bound_by": shard_k["bound_by"]},
+        "reschedule_shape": {k: resched_k[k] for k in (
+            "T", "N", "R", "families", "ms", "plain_ms", "bound_ms",
+            "bound_by")}}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})
     return 0

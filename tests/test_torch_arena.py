@@ -1,18 +1,20 @@
 """The port's device-resident arena (volcano_tpu_torch.ops.device_cache)
-and packed entry points (ops.solver.solve_allocate_packed2d / _delta /
-_packed) against the JAX package's, on the CPU.
+and its packed entry point (``PackedDeviceCache.update`` then
+``ops.solver.solve_allocate_packed2d``) against the JAX package's, on the
+CPU.
 
 - ``SnapshotArrays.packed()`` gives the JAX package's (fbuf, ibuf, layout)
   bit for bit on seeded snapshots.
-- ``PackedDeviceCache(device="cpu")``: plan kinds, byte accounting, the
-  power-of-two padding, ``invalidate`` / ``reset`` and zero-dirty
-  sessions, mirroring tests/test_arena.py's unit contracts.
+- ``PackedDeviceCache(device="cpu")``: full ships, exact dirty-chunk
+  deltas and their bytes (``chunk * 4 + 4`` a chunk), ``invalidate`` /
+  ``reset`` and zero-dirty sessions, mirroring tests/test_arena.py's unit
+  contracts.
 - Arena vs cold: over churned sessions the delta path (in-place scatter
   into the resident buffers, views of them into the solve) gives the same
   ``compact`` as a cold ``solve_allocate`` of the same arrays, and as the
-  JAX package's ``solve_allocate_delta`` run op by op (``jax.disable_jit``:
-  XLA's CPU jit contracts FMAs, see test_torch_solver.py). Tolerance:
-  exact.
+  JAX package's ``plan_delta`` + ``solve_allocate_delta`` run op by op
+  (``jax.disable_jit``: XLA's CPU jit contracts FMAs, see
+  test_torch_solver.py), with the same dirty chunks. Tolerance: exact.
 """
 
 from __future__ import annotations
@@ -27,7 +29,6 @@ from volcano_tpu.ops import PackedDeviceCache as JPackedDeviceCache
 from volcano_tpu.ops import solver as js
 from volcano_tpu_torch.ops import PackedDeviceCache
 from volcano_tpu_torch.ops import solver as ts
-from volcano_tpu_torch.ops.device_cache import _pow2_bucket
 
 from test_torch_flatten import cluster_spec, flatten
 from test_torch_solver import params_dict
@@ -122,13 +123,17 @@ def test_needs_a_device_or_an_explicit_cpu():
 
 
 def test_plan_kinds_accounting_and_padding():
+    """update() is the one entry: a full ship, then exact dirty-chunk
+    deltas (no padding: each dirty chunk costs its values and one int32
+    index), none when nothing changed."""
     C = 16
     arr, _ = _problem()
     dc = PackedDeviceCache(chunk=C, device="cpu")
     fbuf, ibuf, layout = arr.packed()
-    kind, payload = dc.plan_delta(fbuf, ibuf, layout)
-    # first session: full ship, returned as a no-op fused delta
-    assert kind == "fused" and dc.last_full_ship and dc.full_ships == 1
+    f2d, i2d = dc.update(fbuf, ibuf, layout)
+    # first session: full ship
+    assert dc.last_full_ship and dc.full_ships == 1
+    assert f2d is dc._dev_f and i2d is dc._dev_i
     cf, ci = dc._dev_f.shape[0], dc._dev_i.shape[0]
     assert dc.last_shipped_chunks == cf + ci
     assert dc.last_shipped_bytes == dc.full_upload_bytes() \
@@ -137,38 +142,33 @@ def test_plan_kinds_accounting_and_padding():
     # the resident buffers are copies, not views of the host mirror
     assert dc._dev_f.data_ptr() != dc._host_f.ctypes.data
 
-    # zero-dirty: resident buffers, nothing shipped
-    kind, payload = dc.plan_delta(fbuf, ibuf, layout)
-    assert kind == "updated" and dc.last_shipped_bytes == 0
-    assert payload[0] is dc._dev_f
+    # zero-dirty: the resident buffers, nothing shipped
+    payload = dc.update(fbuf, ibuf, layout)
+    assert dc.last_shipped_bytes == 0 and dc.last_shipped_chunks == 0
+    assert payload[0] is dc._dev_f and not dc.last_full_ship
 
-    # three dirty float chunks -> fused, indices padded to 4 with a
-    # repeat of the first, whose padded rows match the real one
+    # three dirty float chunks: exactly those three scattered in place
     f2 = fbuf.copy()
     f2[np.array([0, 2, 5]) * C] = -3.5
-    kind, (f2d, i2d, fi, fv, ii, iv) = dc.plan_delta(f2, ibuf, layout)
-    assert kind == "fused" and not dc.last_full_ship
-    assert list(fi[:3]) == [0, 2, 5] and (fi[3:] == 0).all()
-    assert fi.size == iv.shape[0] == PackedDeviceCache.FUSED_SLOTS
-    for pos in range(3, fi.size):
-        assert np.array_equal(fv[pos], fv[0])
+    g2d, _ = dc.update(f2, ibuf, layout)
+    assert g2d is f2d and not dc.last_full_ship
     assert dc.last_shipped_chunks == 3
-    assert dc.last_shipped_bytes == fv.nbytes + iv.nbytes + fi.nbytes \
-        + ii.nbytes
-    # the plan committed the mirror; the scatter belongs to the solve
+    assert dc.last_shipped_bytes == 3 * (C * 4 + 4)
     assert np.array_equal(dc._host_f[:f2.size], f2)
-    ts.solve_allocate_delta(f2d, i2d, fi, fv, ii, iv, layout,
-                            params_dict(arr, binpack=1.0))
+    assert np.array_equal(dc._dev_f.reshape(-1).numpy(), dc._host_f)
+    ts.solve_allocate_packed2d(f2d, i2d, layout,
+                               params_dict(arr, binpack=1.0))
     assert np.array_equal(dc._dev_f.reshape(-1).numpy(), dc._host_f)
 
-    # more dirty chunks than the fused slots: scattered here, "updated"
+    # seventeen dirty chunks: the same exact scatter, seventeen chunks'
+    # bytes
     f3 = f2.copy()
-    n_dirty = PackedDeviceCache.FUSED_SLOTS + 1
+    n_dirty = 17
     assert cf >= n_dirty
     f3[np.arange(n_dirty) * C] = -7.25  # (an inf entry ignores += 1)
-    kind, _ = dc.plan_delta(f3, ibuf, layout)
-    assert kind == "updated" and dc.last_shipped_chunks == n_dirty
-    assert dc.last_shipped_bytes == _pow2_bucket(n_dirty) * (C * 4 + 4)
+    dc.update(f3, ibuf, layout)
+    assert dc.last_shipped_chunks == n_dirty
+    assert dc.last_shipped_bytes == n_dirty * (C * 4 + 4)
     assert np.array_equal(dc._dev_f.reshape(-1).numpy()[:f3.size], f3)
     assert dc.sessions == 4 and dc.delta_sessions == 3
     assert dc.arena_hit_rate == 0.75
@@ -177,20 +177,24 @@ def test_plan_kinds_accounting_and_padding():
     _, _, layout2 = flatten("torch", cluster_spec(
         6, n_nodes=40, n_jobs=10)).packed()
     assert layout2 != layout
-    dc.plan_delta(fbuf, ibuf, layout2)
+    dc.update(fbuf, ibuf, layout2)
     assert dc.last_full_ship and dc.full_ships == 2
 
 
 def _session(dc, arr, params, flags):
     fbuf, ibuf, layout = arr.packed()
     p = dc.params_device(params)
-    kind, payload = dc.plan_delta(fbuf, ibuf, layout)
-    if kind == "updated":
-        res = ts.solve_allocate_packed2d(*payload, layout, p, **flags)
-    else:
-        res, nf, ni = ts.solve_allocate_delta(*payload, layout, p, **flags)
-        dc.commit(nf, ni)
-    return res.compact.numpy()
+    f2d, i2d = dc.update(fbuf, ibuf, layout)
+    return ts.solve_allocate_packed2d(f2d, i2d, layout, p,
+                                      **flags).compact.numpy()
+
+
+def _packed_solve(arr, params, flags):
+    """A one-off packed solve: a fresh CPU arena's full ship, then the
+    solve over its buffers."""
+    fbuf, ibuf, layout = arr.packed()
+    f2d, i2d = PackedDeviceCache(device="cpu").update(fbuf, ibuf, layout)
+    return ts.solve_allocate_packed2d(f2d, i2d, layout, params, **flags)
 
 
 FLAGS = dict(herd_mode="pack", score_families=("binpack", "kube"))
@@ -323,8 +327,16 @@ def test_delta_sessions_equal_cold_and_jax(flags):
                 jdc.commit(nf, ni)
             jc = np.asarray(jres.compact)
         assert np.array_equal(got, jc), s
-        assert (tdc.last_shipped_bytes, tdc.last_shipped_chunks) == \
-            (jdc.last_shipped_bytes, jdc.last_shipped_chunks), s
+        # the same chunks cross: a full ship's bytes equal the JAX
+        # package's; a delta ships exactly its dirty chunks, where the
+        # JAX package pads them to its fused slots
+        assert tdc.last_shipped_chunks == jdc.last_shipped_chunks, s
+        assert tdc.last_full_ship == jdc.last_full_ship, s
+        if tdc.last_full_ship:
+            assert tdc.last_shipped_bytes == jdc.last_shipped_bytes, s
+        else:
+            assert tdc.last_shipped_bytes == \
+                tdc.last_shipped_chunks * (64 * 4 + 4), s
         assert (got >= 0).any()
     # the first session full-shipped, every churned one was a delta
     assert kinds == [True] + [False] * 5
@@ -333,9 +345,7 @@ def test_delta_sessions_equal_cold_and_jax(flags):
 
 def test_packed_entry_point_equals_cold():
     arr, params = _problem(8)
-    fbuf, ibuf, layout = arr.packed()
-    a = ts.solve_allocate_packed(fbuf, ibuf, layout, params,
-                                 device="cpu", **FLAGS)
+    a = _packed_solve(arr, params, FLAGS)
     b = ts.solve_allocate(arr.numpy_dict(), params, device="cpu", **FLAGS)
     for k in ("assigned", "kind", "job_ready", "compact"):
         assert torch.equal(getattr(a, k), getattr(b, k)), k
@@ -377,9 +387,7 @@ def test_session_pipeline_overlaps_and_collects_fifo():
                                        device="cpu", **FLAGS).compact)
 
         def dispatch():
-            return start_readback(
-                ts.solve_allocate_packed(*arr.packed(), params,
-                                         device="cpu", **FLAGS).compact)
+            return start_readback(_packed_solve(arr, params, FLAGS).compact)
 
         def collect(rb):
             if sn == 0:

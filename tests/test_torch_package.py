@@ -87,21 +87,24 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
         to_torch_arrays(arr.numpy_dict())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ts.solve_allocate(arr.numpy_dict(), p)
-    fbuf, ibuf, layout = arr.packed()
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        ts.solve_allocate_packed(fbuf, ibuf, layout, p)
     from volcano_tpu_torch.cache import SchedulerCache
     from volcano_tpu_torch.client import ClusterStore
     from volcano_tpu_torch.ops import PackedDeviceCache
     from volcano_tpu_torch.scheduler import Scheduler
+    # the packed path starts at the arena, which needs the device
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PackedDeviceCache()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Scheduler(SchedulerCache(ClusterStore()))
-    # the explicit host run works
+    # the explicit host run works, cold and through the arena
     res = ts.solve_allocate(arr.numpy_dict(), p, device="cpu")
     assert res.assigned.device.type == "cpu"
-    assert PackedDeviceCache(device="cpu").device.type == "cpu"
+    dc = PackedDeviceCache(device="cpu")
+    assert dc.device.type == "cpu"
+    fbuf, ibuf, layout = arr.packed()
+    res = ts.solve_allocate_packed2d(*dc.update(fbuf, ibuf, layout), layout,
+                                     p)
+    assert res.assigned.device.type == "cpu"
     Scheduler(SchedulerCache(ClusterStore(), device="cpu")).run_once()
 
 

@@ -12,9 +12,11 @@ the Statement replay) against the JAX package's Scheduler.
   cycle in both packages, and the port's arena re-ships after it. On a
   CUDA arena the port has no host fallback: the failure is the allocate
   action's error.
-- Modes and options the port does not have raise NotImplementedError
-  naming their ROADMAP item, at conf loading or before any dispatch, and
-  never reach the host fallback.
+- Options the port does not have raise NotImplementedError naming their
+  ROADMAP item, and so would an unported action or mode (stand-ins
+  registered as unported: every action and mode of the JAX package is
+  ported), at conf loading or before any dispatch, never reaching the
+  host fallback.
 - Without a GPU, a cache (and so a Scheduler) built without
   ``device="cpu"`` raises.
 
@@ -57,8 +59,15 @@ def test_binds_match_jax_bind_for_bind(conf):
         total += len(bt)
         tt, jt = t.sched.last_cycle_timing, j.sched.last_cycle_timing
         for k in ("flatten_mode", "order_mode", "arena_full_ship",
-                  "delta_chunks", "arena_bytes_shipped"):
+                  "delta_chunks"):
             assert tt.get(k) == jt.get(k), (cycle, k)
+        # the same chunks cross; a delta ships exactly its dirty chunks
+        # (2052 bytes each), where the JAX package pads to its fused slots
+        if tt["arena_full_ship"]:
+            assert tt["arena_bytes_shipped"] == jt["arena_bytes_shipped"]
+        else:
+            assert tt["arena_bytes_shipped"] == tt["delta_chunks"] * 2052
+            assert tt["arena_bytes_shipped"] <= jt["arena_bytes_shipped"]
         assert not tt.get("host_fallback")
         assert t.cache.breaker.state_code == 0
     assert total > 20
@@ -134,11 +143,14 @@ def test_device_failure_on_a_cuda_arena_is_not_absorbed(failure):
 
 #: confs naming an action, a mode or an option, with the ROADMAP item that
 #: ports it, or None once ported (preempt and reclaim with A6, the
-#: sequential mode and the drf hierarchy with A2, the sharded mode with A7)
+#: sequential mode and the drf hierarchy with A2, the sharded mode with A7,
+#: reschedule, elect and reserve with A9)
 UNPORTED_CONFS = {
     "preempt": ('actions: "enqueue, preempt, allocate"', None),
     "reclaim": ('actions: "enqueue, reclaim, allocate, backfill"', None),
-    "reschedule": ('actions: "allocate, reschedule"', "A8"),
+    "reschedule": ('actions: "allocate, reschedule"', None),
+    "elect": ('actions: "enqueue, elect, allocate, backfill"', None),
+    "reserve": ('actions: "enqueue, elect, reserve, allocate"', None),
     "sequential": ('actions: "allocate"\nconfigurations:\n- name: allocate\n'
                    '  arguments:\n    mode: sequential', None),
     "sharded": ('actions: "allocate"\nconfigurations:\n- name: allocate\n'
@@ -171,7 +183,7 @@ def test_unported_conf_raises_at_loading(name):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"compile_cache_dir": "cc"}, "A8"), ({"prewarm": True}, "A8"),
+    ({"compile_cache_dir": "cc"}, "A10"), ({"prewarm": True}, "A10"),
 ])
 def test_unported_scheduler_options_raise(kw, item):
     Scheduler = pkg_mod("torch", "scheduler").Scheduler
@@ -205,11 +217,15 @@ def test_unported_mode_never_reaches_the_host_fallback(tmp_path,
     assert c.cache.evictor.evicts == []
     assert c.cache.breaker._consecutive_failures == 0
     assert c.cache.breaker.fallback_cycles == 0
-    # a hot reload to an unported conf raises out of the cycle
+    # a hot reload to an unported conf raises out of the cycle: every
+    # action of the JAX package is ported, so a stand-in action is
+    # registered as unported
+    sched_mod = pkg_mod("torch", "scheduler")
+    monkeypatch.setitem(sched_mod.UNPORTED_ACTIONS, "stand-in", "A9")
     path = tmp_path / "conf.yaml"
-    path.write_text(UNPORTED_CONFS["reschedule"][0])
+    path.write_text('actions: "allocate, stand-in"')
     c.sched.conf_path = str(path)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         c.sched.run_once()
     assert c.cache.binder.binds == {}
 

@@ -138,10 +138,22 @@ def test_mirrors_and_accounting_equal_jax():
                   "_host_node_i"):
             assert getattr(t, k).tobytes() == getattr(j, k).tobytes(), \
                 (label, k)
-        for k in ("last_shard_bytes", "last_shipped_bytes",
-                  "last_shipped_chunks", "last_full_ship", "full_ships",
-                  "delta_sessions", "total_shipped_bytes"):
+        for k in ("last_shipped_chunks", "last_full_ship", "full_ships",
+                  "delta_sessions"):
             assert getattr(t, k) == getattr(j, k), (label, k)
+        if t.last_full_ship:
+            for k in ("last_shard_bytes", "last_shipped_bytes"):
+                assert getattr(t, k) == getattr(j, k), (label, k)
+        else:
+            # a delta ships exactly its dirty chunks (values + an int32
+            # index each) where the JAX package pads them to a power of
+            # two: the same shards receive bytes, never more than there
+            assert t.last_shipped_bytes == \
+                t.last_shipped_chunks * (64 * 4 + 4), label
+            for tb, jb in zip(t.last_shard_bytes, j.last_shard_bytes):
+                assert tb % (64 * 4 + 4) == 0 and (tb > 0) == (jb > 0) \
+                    and tb <= jb, (label, t.last_shard_bytes,
+                                   j.last_shard_bytes)
         assert t.full_upload_bytes() == j.full_upload_bytes()
         assert _resident_equals_mirror(t), label
         return list(t.last_shard_bytes)

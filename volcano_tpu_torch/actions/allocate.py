@@ -5,7 +5,8 @@ Two execution modes:
 - solver (default): collect pending tasks in the session's
   namespace/queue/job/task order (host-side comparators), flatten the
   decision problem into padded arrays, solve it on the device through the
-  resident arena (ops.device_cache + ops.solver.solve_allocate_delta), and
+  resident arena (ops.device_cache.PackedDeviceCache.update +
+  ops.solver.solve_allocate_packed2d), and
   replay the returned assignments through Statement/Pipeline — the
   ordering and transaction semantics stay in the control plane, the
   task x node math runs on device. In mode sharded (or under the
@@ -421,44 +422,27 @@ class AllocateAction(Action):
                                                    **kw)
                 timing["dispatch_ms"] = (_time.perf_counter() - t1) * 1e3
             elif dc is not None:
-                # device-resident buffers: the dirty-chunk scatter runs at
-                # the head of the solve (solve_allocate_delta), so a
-                # session costs one scatter + solve + one compact readback.
-                # Sessions dirtying more than FUSED_SLOTS chunks (or none)
-                # scatter in plan_delta and solve off the resident buffers
-                from ..ops.solver import (
-                    solve_allocate_delta, solve_allocate_packed2d,
-                )
+                # device-resident buffers: update() scatters the exact
+                # dirty chunks in place and the solve reads views of the
+                # resident buffers, so a session costs one scatter + solve
+                # + one compact readback. A failure after the scatter
+                # reaches _device_fault_fallback, which invalidates the
+                # arena: the next session re-ships it whole
+                from ..ops.solver import solve_allocate_packed2d
                 t1 = _time.perf_counter()
                 fbuf, ibuf, layout = arr.packed()
                 timing["pack_ms"] = (_time.perf_counter() - t1) * 1e3
                 params = dc.params_device(params)
-                # flags snapshot for diagnostics that re-dispatch the same
-                # solve against the committed buffers
-                dc.last_solve_flags = dict(layout=layout, **solve_kw)
-                dc.last_params = params
                 t1 = _time.perf_counter()
-                kind_, payload = dc.plan_delta(fbuf, ibuf, layout)
+                f2d, i2d = dc.update(fbuf, ibuf, layout)
                 timing["delta_plan_ms"] = (_time.perf_counter() - t1) * 1e3
                 timing["delta_chunks"] = float(dc.last_shipped_chunks)
-                timing["delta_fused"] = float(kind_ == "fused")
                 timing["arena_mode"] = "packed"
                 timing["arena_bytes_shipped"] = float(dc.last_shipped_bytes)
                 timing["arena_full_ship"] = float(dc.last_full_ship)
                 t1 = _time.perf_counter()
-                if kind_ == "updated":
-                    f2d, i2d = payload
-                    res = solve_allocate_packed2d(f2d, i2d, layout, params,
-                                                  **solve_kw)
-                else:
-                    f2d, i2d, fi, fv, ii, iv = payload
-                    # a failure here (the scatter may already have landed)
-                    # reaches _device_fault_fallback, which invalidates
-                    # the arena: the next session re-ships it whole
-                    res, new_f, new_i = solve_allocate_delta(
-                        f2d, i2d, fi, fv, ii, iv, layout, params,
-                        **solve_kw)
-                    dc.commit(new_f, new_i)
+                res = solve_allocate_packed2d(f2d, i2d, layout, params,
+                                              **solve_kw)
                 timing["dispatch_ms"] = (_time.perf_counter() - t1) * 1e3
             else:
                 dev = getattr(ssn.cache, "device", None)

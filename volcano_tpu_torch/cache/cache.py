@@ -349,11 +349,20 @@ class SchedulerCache:
         self.breaker = None
         # crash-safe HA seams, None unless installed: the write-ahead
         # bind-intent journal (consumed by Statement.commit /
-        # flush_bulk_commit; its recovery side is ROADMAP A8) and the
+        # flush_bulk_commit; its recovery side is ROADMAP A12) and the
         # fenced store handle the effectors write through once fencing
         # is on (install_fencing)
         self.bind_journal = None
         self.fenced_cluster = None
+        # global rescheduler (reschedule/): deployment-level defaults for
+        # the reschedule action (the Scheduler's reschedule_* flags; per-
+        # action conf arguments override), its cross-session state (cycle
+        # counter, its own flatten cache and arena on this cache's device,
+        # the migration-intent journal) and the bounded per-plan history
+        # that tests and chip_smoke.py read budget/cap compliance from
+        self.reschedule_opts = None
+        self.reschedule_state = None
+        self.reschedule_log = []
 
         # job uid -> flat_version reflected by the last successful status
         # write; the job updater's skip-if-untouched check compares against

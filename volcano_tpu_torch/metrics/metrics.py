@@ -348,6 +348,32 @@ fenced_writes_total = registry.register(Counter(
     "Mutating store writes rejected by lease fencing (split-brain "
     "attempts made visible)", ["holder"]))
 
+# -- global rescheduler metrics (reschedule/) -------------------------------
+
+reschedule_plans_total = registry.register(Counter(
+    "volcano_reschedule_plans_total",
+    "Defragmentation plans by outcome: executed, pre-solve skips "
+    "(empty / fits / no_hole / skipped_breaker / solve_failed) and "
+    "post-solve plan rejections (rejected_no_gain / rejected_no_hole / "
+    "rejected_fits / rejected_empty / rejected_budget)", ["outcome"]))
+reschedule_moves_total = registry.register(Counter(
+    "volcano_reschedule_moves_total",
+    "Migration moves by stage (proposed = raw solved-vs-incumbent diff, "
+    "selected = survived budget/caps/feasibility, executed = evictions "
+    "dispatched, capped = cut by bounding)", ["stage"]))
+reschedule_fragmentation = registry.register(Gauge(
+    "volcano_reschedule_fragmentation",
+    "Stranded-free-capacity fraction at the last plan (pre = measured, "
+    "post = projected over the selected moves)", ["phase"]))
+reschedule_plan_solve_ms = registry.register(Gauge(
+    "volcano_reschedule_plan_solve_milliseconds",
+    "Wall time of the last defrag solve (snapshot + flatten + device "
+    "solve + readback)"))
+reschedule_intents_total = registry.register(Counter(
+    "volcano_reschedule_intents_total",
+    "Migration-intent journal activity (recorded / confirmed / settled "
+    "/ abandoned)", ["event"]))
+
 # -- job / namespace metrics -----------------------------------------------
 
 job_share = registry.register(Gauge(

@@ -17,7 +17,6 @@ from .pipeline import (  # noqa: F401
     Readback, SessionPipeline, SessionTicket, start_readback,
 )
 from .solver import (  # noqa: F401
-    SolveResult, decode_compact, solve_allocate, solve_allocate_delta,
-    solve_allocate_packed, solve_allocate_packed2d,
+    SolveResult, decode_compact, solve_allocate, solve_allocate_packed2d,
     solve_allocate_sequential,
 )

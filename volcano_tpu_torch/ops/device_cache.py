@@ -13,21 +13,23 @@ pkg/scheduler/cache/cache.go:319-402).
 Arena contract (what survives what):
 
 - **Chunked packed buffers** (``_dev_f``/``_dev_i``): device-resident
-  across sessions; dirty chunks are scattered into them IN PLACE
-  (``index_copy_``), either here (``update`` / the "updated" plan) or by
-  ``solver.solve_allocate_delta`` at the head of the solve. Dropped on
-  ``invalidate()``/``reset()``: after a failed dispatch a scatter may have
+  across sessions; ``update`` scatters the exact dirty chunks into them
+  IN PLACE (``index_copy_``) and returns them for
+  ``solver.solve_allocate_packed2d``. Dropped on
+  ``invalidate()``/``reset()``: after a failed dispatch the scatter has
   landed without its solve, so the next session re-ships them whole.
 - **Score params** (``params_device``): device-resident across sessions,
   never written by a solve; re-validated (not re-uploaded) after
   ``invalidate()``. Only content changes re-pin them.
 - **Host mirror** (``_host_f``/``_host_i``): host memory, kept so the
-  per-session diff is chunk-exact. A plan commits it BEFORE the solve
-  scatters, so after a failure only ``invalidate()`` (the forced full
-  re-ship) makes the device agree with it again — the allocate action
-  calls it on every device failure.
+  per-session diff is chunk-exact. ``update`` commits it with the
+  scatter, BEFORE the solve, so after a failed solve only
+  ``invalidate()`` (the forced full re-ship) makes the device agree with
+  it again — every caller invalidates on a device failure.
 
-Accounting (``last_shipped_bytes``, ``arena_hit_rate`` …) feeds the
+Accounting (``last_shipped_bytes``: a full ship's buffer bytes, or
+``chunk * 4 + 4`` per dirty chunk of a delta — its values and its index;
+``arena_hit_rate`` …) feeds the
 ``volcano_arena_*`` metrics and ``Scheduler.last_cycle_timing``.
 """
 
@@ -41,23 +43,13 @@ import torch
 from .convert import resolve_device, to_torch_params
 
 
-def _pow2_bucket(n: int) -> int:
-    """Strict powers of two, deliberately NOT ops.arrays.bucket (whose
-    quarter-steps minimize padding): dirty-chunk counts vary every session,
-    so the scatter sees the fewest possible index shapes."""
-    b = 1
-    while b < n:
-        b <<= 1
-    return b
-
-
-def scatter_chunks(dev: torch.Tensor, idx, vals) -> None:
+def scatter_chunks(dev: torch.Tensor, idx: np.ndarray, vals) -> None:
     """``dev[idx] = vals`` in place over whole chunks (rows of ``dev``).
-    ``idx``/``vals`` are host arrays or tensors; duplicate indices must
-    carry identical rows (power-of-two padding repeats a dirty chunk), so
-    which duplicate lands last does not matter."""
-    dev.index_copy_(0, torch.as_tensor(idx).to(dev.device, torch.int64),
-                    torch.as_tensor(vals).to(dev.device, dev.dtype))
+    ``idx`` is a host array of distinct chunk indices, ``vals`` a host
+    array. The indices cross as int32 (the 4 bytes a chunk the accounting
+    charges) and widen on the device: ``index_copy_`` takes int64 only."""
+    dev.index_copy_(0, torch.from_numpy(idx.astype(np.int32)).to(
+        dev.device).long(), torch.as_tensor(vals).to(dev.device, dev.dtype))
 
 
 class PackedDeviceCache:
@@ -65,7 +57,7 @@ class PackedDeviceCache:
 
     First call (or any layout/shape change) ships everything; later calls
     diff against the previously shipped host copy chunk-wise and scatter
-    only dirty chunks. Chunk-index uploads are padded to powers of two.
+    exactly the dirty chunks (none when nothing changed).
 
     ``device``: where the arena lives — None means the CUDA device and
     raises when there is none; ``"cpu"`` keeps it on the host.
@@ -91,7 +83,7 @@ class PackedDeviceCache:
         self.last_shipped_chunks = 0
         self.last_shipped_bytes = 0     # bytes of the last delta/ship
         self.last_full_ship = False
-        self.sessions = 0               # update/plan_delta calls
+        self.sessions = 0               # update calls
         self.full_ships = 0             # sessions that re-shipped everything
         self.delta_sessions = 0         # sessions that shipped a delta
         self.invalidations = 0          # soft resets (dispatch failures)
@@ -127,9 +119,9 @@ class PackedDeviceCache:
         self._params_suspect = False
 
     def invalidate(self) -> None:
-        """Soft reset after a failed dispatch: the in-place scatter may
-        have written chunks the failed solve never consumed (or written
-        only some), and the plan already committed the mirror, so neither
+        """Soft reset after a failed dispatch: the in-place scatter has
+        written chunks the failed solve never consumed, and ``update``
+        already committed the mirror, so neither
         the device buffers nor a diff against the mirror can be trusted.
         Drop the chunked buffers — the next session full-ships them from
         its own snapshot — and keep the pinned params, re-validating them
@@ -139,7 +131,7 @@ class PackedDeviceCache:
         self._params_suspect = True
         self.invalidations += 1
 
-    # -- shared mirror maintenance (update + plan_delta flows) ----------
+    # -- mirror maintenance --------------------------------------------
 
     def _full_ship(self, fbuf, ibuf, layout, cf: int, ci: int) -> None:
         """(Re)establish the host mirror and device buffers wholesale."""
@@ -177,9 +169,9 @@ class PackedDeviceCache:
 
     def _diff(self, fbuf, ibuf, cf: int, ci: int):
         """Pad new content into mirror-shaped buffers and locate dirty
-        chunks: (f2, i2, df, di). Does NOT update the mirror (see
-        _commit_mirror). The padded buffers come from the scratch pool —
-        the previous session's mirror, recycled."""
+        chunks: (f2, i2, df, di). Does NOT update the mirror (``update``
+        does, once the scatter landed). The padded buffers come from the
+        scratch pool — the previous session's mirror, recycled."""
         c = self.chunk
         f2, i2 = self._scratch_f, self._scratch_i
         if f2 is None or f2.size != cf * c:
@@ -199,16 +191,20 @@ class PackedDeviceCache:
                          != self._host_i.reshape(ci, c)).any(axis=1))[0]
         return f2, i2, df, di
 
-    def _commit_mirror(self, f2, i2) -> None:
-        """Adopt the diffed buffers as the new mirror; the old mirror
-        becomes next session's diff scratch."""
-        self._scratch_f, self._scratch_i = self._host_f, self._host_i
-        self._host_f, self._host_i = f2, i2
-
-    def _apply_now(self, f2, i2, df, di, cf: int, ci: int) -> None:
-        """Scatter the dirty chunks into the resident buffers now, then
-        adopt the diff as the mirror."""
+    def update(self, fbuf: np.ndarray, ibuf: np.ndarray,
+               layout) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The session entry: scatter exactly the dirty chunks into the
+        resident buffers (everything on the first call or a layout change)
+        and return them, ``[C, chunk]`` each, for
+        ``solver.solve_allocate_packed2d``. The mirror is committed here,
+        so a solve that fails afterwards must ``invalidate()``."""
         c = self.chunk
+        cf = -(-max(fbuf.size, 1) // c)
+        ci = -(-max(ibuf.size, 1) // c)
+        if self._needs_full_ship(layout, cf, ci):
+            self._full_ship(fbuf, ibuf, layout, cf, ci)
+            return self._dev_f, self._dev_i
+        f2, i2, df, di = self._diff(fbuf, ibuf, cf, ci)
         try:
             self._apply(self._dev_f, df, f2.reshape(cf, c))
             self._apply(self._dev_i, di, i2.reshape(ci, c))
@@ -218,112 +214,23 @@ class PackedDeviceCache:
             # instead of solving on stale data
             self.reset()
             raise
-        self._commit_mirror(f2, i2)
+        # the diffed buffers become the mirror; the old mirror becomes the
+        # next session's diff scratch
+        self._scratch_f, self._scratch_i = self._host_f, self._host_i
+        self._host_f, self._host_i = f2, i2
         self._account(df.size + di.size,
                       self._scatter_wire_bytes(df, di), full=False)
-
-    def update(self, fbuf: np.ndarray, ibuf: np.ndarray,
-               layout) -> Tuple[torch.Tensor, torch.Tensor]:
-        c = self.chunk
-        cf = -(-max(fbuf.size, 1) // c)
-        ci = -(-max(ibuf.size, 1) // c)
-        if self._needs_full_ship(layout, cf, ci):
-            self._full_ship(fbuf, ibuf, layout, cf, ci)
-            return self._dev_f, self._dev_i
-        f2, i2, df, di = self._diff(fbuf, ibuf, cf, ci)
-        self._apply_now(f2, i2, df, di, cf, ci)
         return self._dev_f, self._dev_i
 
     def _scatter_wire_bytes(self, df, di) -> int:
-        """Bytes of the separate-scatter path: each dirty set is padded to
-        a power of two (padded chunks repeat real content but still
-        cross to the device)."""
-        c = self.chunk
-        nf = _pow2_bucket(df.size) if df.size else 0
-        ni = _pow2_bucket(di.size) if di.size else 0
-        return (nf + ni) * c * 4 + (nf + ni) * 4
-
-    @classmethod
-    def _apply(cls, dev, idx, host2d) -> None:
-        if idx.size == 0:
-            return
-        pad = cls._pad_idx(idx, _pow2_bucket(idx.size))
-        scatter_chunks(dev, pad, host2d[pad])
-
-    # ------------------------------------------------------------------
-    # fused-dispatch flow: plan the delta, let the SOLVE apply it
-    # (ops.solver.solve_allocate_delta), then commit the returned buffers
-    # ------------------------------------------------------------------
-
-    #: fixed delta-slot count of the fused dispatch: sessions dirtying
-    #: more chunks take the separate scatter + packed2d solve
-    FUSED_SLOTS = 16
-
-    def plan_delta(self, fbuf: np.ndarray, ibuf: np.ndarray, layout):
-        """Diff against the host mirror WITHOUT dispatching the solve.
-
-        Returns (kind, payload):
-        - ("fused", (f2d, i2d, f_idx, f_vals, i_idx, i_vals)) — at most
-          FUSED_SLOTS dirty chunks: feed solve_allocate_delta, which
-          scatters them in place at the head of the solve; the caller
-          commit()s the returned buffers, and on a dispatch failure calls
-          invalidate() so the next session re-ships the chunked buffers in
-          full (reset() only if the host mirror itself is suspect).
-        - ("updated", (f2d, i2d)) — zero dirty chunks, or more than
-          FUSED_SLOTS: any scatters were applied here (reusing the diff
-          already computed); feed solve_allocate_packed2d.
-
-        On the first call (or a layout change) the full buffers are
-        shipped and a no-op fused delta (chunk 0 rewritten with identical
-        bytes) is returned, so the caller has one code path.
-        """
-        c = self.chunk
-        cf = -(-max(fbuf.size, 1) // c)
-        ci = -(-max(ibuf.size, 1) // c)
-        k = self.FUSED_SLOTS
-        if self._needs_full_ship(layout, cf, ci):
-            self._full_ship(fbuf, ibuf, layout, cf, ci)
-            zero = np.zeros(k, np.int32)
-            return "fused", (
-                self._dev_f, self._dev_i,
-                zero, np.broadcast_to(
-                    self._host_f.reshape(cf, c)[0], (k, c)).copy(),
-                zero, np.broadcast_to(
-                    self._host_i.reshape(ci, c)[0], (k, c)).copy())
-
-        f2, i2, df, di = self._diff(fbuf, ibuf, cf, ci)
-        if df.size == 0 and di.size == 0:
-            # unchanged snapshot: solve straight off the resident buffers
-            self._scratch_f, self._scratch_i = f2, i2
-            self._account(0, 0, full=False)
-            return "updated", (self._dev_f, self._dev_i)
-        if int(df.size) > k or int(di.size) > k:
-            self._apply_now(f2, i2, df, di, cf, ci)
-            return "updated", (self._dev_f, self._dev_i)
-        f_idx = self._pad_idx(df, k)
-        i_idx = self._pad_idx(di, k)
-        fv = f2.reshape(cf, c)[f_idx]
-        iv = i2.reshape(ci, c)[i_idx]
-        self._commit_mirror(f2, i2)
-        # fused cost: both value blocks always ship k chunks, plus the two
-        # index vectors
-        self._account(df.size + di.size,
-                      fv.nbytes + iv.nbytes + f_idx.nbytes + i_idx.nbytes,
-                      full=False)
-        return "fused", (self._dev_f, self._dev_i, f_idx, fv, i_idx, iv)
+        """Bytes a delta moves to the device: each dirty chunk's values
+        plus its int32 index."""
+        return int(df.size + di.size) * (self.chunk * 4 + 4)
 
     @staticmethod
-    def _pad_idx(idx: np.ndarray, k: int) -> np.ndarray:
-        """Chunk indices padded to k with repeats of the first (a repeat
-        writes an identical row, so the pad is a no-op scatter)."""
-        pad = np.full(k, idx[0] if idx.size else 0, np.int32)
-        pad[:idx.size] = idx.astype(np.int32)
-        return pad
-
-    def commit(self, f2d, i2d) -> None:
-        """Store the buffers returned by solve_allocate_delta (the same
-        tensors, scattered in place)."""
-        self._dev_f, self._dev_i = f2d, i2d
+    def _apply(dev, idx, host2d) -> None:
+        if idx.size:
+            scatter_chunks(dev, idx, host2d[idx])
 
     # ------------------------------------------------------------------
     # device-resident score params: a few small arrays ([N] node_static

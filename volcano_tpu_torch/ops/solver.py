@@ -1088,58 +1088,3 @@ def solve_allocate_packed2d(f2d, i2d, layout, score_params,
                           herd_mode, score_families, use_queue_cap,
                           use_drf_order, use_hdrf_order, work_conserving,
                           fused, device=f2d.device)
-
-
-def solve_allocate_delta(f2d, i2d, f_idx, f_vals, i_idx, i_vals, layout,
-                         score_params,
-                         max_rounds: int = 64,
-                         max_gang_iters: int = 12,
-                         per_node_cap: int = 0,
-                         herd_mode: str = "pack",
-                         score_families: Tuple[str, ...] = ("binpack",),
-                         use_queue_cap: bool = False,
-                         use_drf_order: bool = False,
-                         use_hdrf_order: bool = False,
-                         work_conserving: bool = True,
-                         fused: str = "auto"):
-    """Dirty-chunk scatter + solve in one call: f_idx/f_vals (and
-    i_idx/i_vals) are the dirty chunk indices and replacement chunk
-    contents (duplicate indices carry identical rows, so power-of-two
-    padding is a no-op). The scatter writes the resident buffers in
-    place; returns (result, f2d, i2d) — the same tensors, updated — so
-    the caller's ``commit`` reads as it does for a donating runtime."""
-    from .device_cache import scatter_chunks
-
-    scatter_chunks(f2d, f_idx, f_vals)
-    scatter_chunks(i2d, i_idx, i_vals)
-    res = solve_allocate_packed2d(
-        f2d, i2d, layout, score_params, max_rounds, max_gang_iters,
-        per_node_cap, herd_mode, score_families, use_queue_cap,
-        use_drf_order, use_hdrf_order, work_conserving, fused)
-    return res, f2d, i2d
-
-
-def solve_allocate_packed(fbuf, ibuf, layout, score_params,
-                          max_rounds: int = 64,
-                          max_gang_iters: int = 12,
-                          per_node_cap: int = 0,
-                          herd_mode: str = "pack",
-                          score_families: Tuple[str, ...] = ("binpack",),
-                          use_queue_cap: bool = False,
-                          use_drf_order: bool = False,
-                          use_hdrf_order: bool = False,
-                          work_conserving: bool = True,
-                          fused: str = "auto",
-                          device: Optional[object] = None) -> SolveResult:
-    """solve_allocate over the host buffers of SnapshotArrays.packed():
-    two copies to ``device`` (CUDA when None; raises without one)."""
-    dev = resolve_device(device)
-    f = torch.from_numpy(np.ascontiguousarray(fbuf, np.float32)).to(
-        dev, copy=True)
-    i = torch.from_numpy(np.ascontiguousarray(ibuf, np.int32)).to(
-        dev, copy=True)
-    return solve_allocate(_unpack(f, i, layout), score_params, max_rounds,
-                          max_gang_iters, per_node_cap, herd_mode,
-                          score_families, use_queue_cap, use_drf_order,
-                          use_hdrf_order, work_conserving, fused,
-                          device=dev)

@@ -40,10 +40,17 @@ flatten ledger — an armed firing DROPS the delta: the observation counter
 moved, the mark never landed, and the next flatten's consistency-epoch
 check detects the skew and falls back to the full re-diff),
 ``flatten_event_dup`` (same seam, after the mark — the delta applies
-twice, skewing the epoch the other way), and ``order_event`` /
+twice, skewing the epoch the other way), ``order_event`` /
 ``order_event_dup`` (ops/ordering OrderCache.feed_event, the same two
 faults on the event-sourced ordering ledger; the next allocate
-collection falls back to the full sort).
+collection falls back to the full sort), ``reschedule_dispatch``
+(reschedule/action.py, before the defrag solve dispatches — a failure
+counts one breaker failure, invalidates the action's arena and skips the
+pass; there is no host solve), and ``migration_commit``
+(reschedule/action.py, per migration wave, after the wave's
+migration-intent write and before its evictions dispatch — ``at:1``
+fails with the first wave journaled but zero evictions applied, ``at:2``
+with wave one fully evicted and wave two only journaled).
 """
 
 from __future__ import annotations

@@ -26,8 +26,8 @@ DEFAULT_SCHEDULE_PERIOD = 1.0  # seconds (options.go:83)
 
 
 #: actions of the JAX package this package does not run yet, with the
-#: ROADMAP item that ports each
-UNPORTED_ACTIONS = {"reschedule": "A8", "elect": "A8", "reserve": "A8"}
+#: ROADMAP item that ports each (none: every action is ported)
+UNPORTED_ACTIONS: dict = {}
 
 
 def check_conf_ported(conf) -> None:
@@ -59,11 +59,15 @@ class Scheduler:
                  breaker_failures: int = 3,
                  breaker_cooldown_s: float = 30.0,
                  solver_mode: Optional[str] = None,
-                 sharded_byte_budget: int = 0):
+                 sharded_byte_budget: int = 0,
+                 reschedule_interval: int = 0,
+                 reschedule_max_moves: Optional[int] = None,
+                 reschedule_max_disruption: Optional[int] = None,
+                 reschedule_min_improvement: Optional[float] = None):
         if compile_cache_dir or prewarm:
             raise NotImplementedError(
                 "compile_cache_dir / prewarm need the precompile pipeline, "
-                "which is not ported yet (ROADMAP A8)")
+                "which is not ported yet (ROADMAP A10)")
         if solver_mode not in (None, "packed", "sharded", "auto"):
             raise ValueError(f"solver_mode must be None, 'packed', "
                              f"'sharded' or 'auto': {solver_mode!r}")
@@ -106,6 +110,22 @@ class Scheduler:
         # the allocate action's dispatch/collect overlap; decisions are
         # identical with it on or off
         cache.pipeline_solver = bool(pipeline_solver)
+        # reschedule_* deployment flags: a positive interval opts the
+        # global rescheduler in without a conf edit (load_conf appends the
+        # action when the conf's actions string doesn't name it); the
+        # bounding knobs become the action's defaults, per-action conf
+        # arguments still win (reschedule/action.py DEFAULTS)
+        self._reschedule_enabled = reschedule_interval > 0
+        flags = {"interval": int(reschedule_interval)
+                 if reschedule_interval > 0 else None,
+                 "max_moves": reschedule_max_moves,
+                 "max_disruption_per_job": reschedule_max_disruption,
+                 "min_improvement": reschedule_min_improvement}
+        flags = {k: v for k, v in flags.items() if v is not None}
+        if flags:
+            cache.reschedule_opts = dict(
+                getattr(cache, "reschedule_opts", None) or {}, **flags)
+            self.load_conf()  # re-apply: the first load ran pre-flag
 
     # -- conf hot reload (scheduler.go:112-170) -----------------------------
 
@@ -146,6 +166,13 @@ class Scheduler:
         self.actions = acts
         self.tiers = conf.tiers
         self.configurations = conf.configurations
+        # reschedule_interval opt-in: append the rescheduler when the
+        # conf's actions string doesn't name it (and keep it appended
+        # across hot reloads); a conf that DOES name `reschedule` places
+        # it explicitly and is left alone
+        if getattr(self, "_reschedule_enabled", False) \
+                and all(a.name() != "reschedule" for a in self.actions):
+            self.actions = list(self.actions) + [get_action("reschedule")]
 
     # -- the loop -----------------------------------------------------------
 
