@@ -117,7 +117,42 @@ checkout, then, printing one JSON line per phase:
              bytes on reuse; the layout cut to 60 nodes runs through the
              same pass on the card and on the host with identical
              evictions and plan; the kernel is timed at the defrag shape;
-14. the kernels line, then the result line.
+14. prewarm - the bucket prewarmer (ops.precompile) at the cycle cell's
+             cluster: waves of 10 gangs whose pods per gang grow
+             10, 12, 13, 17 (each size twice, each wave completing before
+             the next), so the pending task count walks the buckets 112 ->
+             128 -> 160 -> 192 with N fixed; each arm in its own process
+             (`--prewarm-arm off|on`), prewarm off then on. Checks: the
+             binds identical cycle for cycle, the warm completing without
+             a failure, no compile on the session thread in any first
+             cycle past a crossing with prewarm on, the warm's launches
+             counted apart. Per crossing: the first cycle at the new
+             bucket beside the next cycle at it, in both arms;
+15. sidecar - `python -m volcano_tpu_torch.parallel.sidecar SOCK` owns the
+             card in its own process (it must name a CUDA device); this
+             process's control plane runs on a CPU cache with
+             cache.sidecar set: the cycle phase's burst, 12 steady waves,
+             an unchanged snapshot sent twice (the second ships 0 chunks)
+             and the evict phase's preempt, each held bind for bind
+             (eviction for eviction) against the same seeded cluster in
+             process on the card; a second server armed to fail its
+             solve must make the client's cycle report allocate_error and
+             bind nothing on the host. Per cycle: cycle ms, the round
+             trip, the server's rounds and shipped chunks, request bytes;
+16. failover - one store at the cycle cell's scale, leader A (fenced
+             writes, the bind journal) through the burst and 3 waves
+             while standby B runs shadow_cycle() before each of A's
+             cycles; A crashes at a wave's bind_commit; the elector's
+             clock passes the lease, B takes over, reconciles, and runs
+             its first cycle on the next wave beside a cold standby C.
+             Checks: every pod bound once, the binds equal an
+             uninterrupted run's, no intent left, A's late write fenced,
+             gangs whole, the shadows wrote nothing, B's arena equal to
+             its mirror, B's first cycle a warm delta (no full ship, no
+             cold flatten) that launches the kernel (every launch held
+             against the plain version). Takeover latency, B's first
+             cycle beside C's;
+17. the kernels line, then the result line.
 
 `--phases kernel,edges` runs a subset (device and build always run) and
 then prints neither of the last two lines.
@@ -128,6 +163,7 @@ Any failed check raises, so the run exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -137,6 +173,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 HEADLINE = dict(n_nodes=2000, n_jobs=1000, tasks_per_job=10)
 KERNEL_SHAPE = (10240, 2048)  # (T, N) of the headline flatten
 FAMILY_SETS = (("binpack",), ("kube",), ("binpack", "kube"))
@@ -805,6 +842,11 @@ CYCLE_KEYS = ("open_ms", "order_ms", "flatten_ms", "pack_ms",
               "backfill_ms", "close_ms", "total_ms")
 
 
+#: the allocate action's timing keys of a solve through the sidecar
+SIDECAR_KEYS = ("sidecar_rtt_ms", "sidecar_request_bytes", "sidecar_rounds",
+                "sidecar_shipped_chunks", "sidecar_launches")
+
+
 class StoreCluster:
     """The port's Scheduler over an in-memory store: ``n_nodes`` nodes of
     32 cpu / 128Gi / 110 pods, 3 queues weighted 1:2:3, gangs of
@@ -925,7 +967,9 @@ class StoreCluster:
                **{k: t[k] for k in CYCLE_KEYS if k in t}}
         for k in ("flatten_mode", "flatten_fallback_reason", "order_mode",
                   "arena_bytes_shipped", "delta_chunks",
-                  "arena_full_ship", "host_fallback", "breaker_state"):
+                  "arena_full_ship", "host_fallback", "breaker_state",
+                  "allocate_error", "session_compiles", "session_compile_s",
+                  "prewarm_completions", *SIDECAR_KEYS):
             if k in t:
                 out[k] = t[k]
         return out
@@ -933,7 +977,18 @@ class StoreCluster:
     def check(self, what: str, gangs=None) -> None:
         """Gangs all-or-nothing (``gangs``: every one fully bound), no node
         bound past its allocatable, no host fallback, breaker closed."""
-        binds = self.cache.binder.binds
+        self.check_placement(what, self.cache.binder.binds, gangs)
+        t = self.sched.last_cycle_timing
+        if t.get("host_fallback") or t.get("allocate_error"):
+            raise AssertionError(f"{what}: the cycle left the device path "
+                                 f"({t.get('host_fallback')}, "
+                                 f"{t.get('allocate_error')})")
+        if self.cache.breaker.state_code != 0:
+            raise AssertionError(f"{what}: the breaker is not closed")
+
+    def check_placement(self, what: str, binds: dict, gangs=None) -> None:
+        """Gangs all-or-nothing (``gangs``: every one fully bound) and no
+        node bound past its allocatable, for ``binds`` ({pod key: node})."""
         for g in (gangs or ()):
             if not all(key in binds for key in self.gangs[g]):
                 raise AssertionError(f"{what}: gang {g} not fully bound")
@@ -954,13 +1009,6 @@ class StoreCluster:
         if over:
             raise AssertionError(f"{what}: nodes over allocatable: "
                                  f"{over[:5]}")
-        t = self.sched.last_cycle_timing
-        if t.get("host_fallback") or t.get("allocate_error"):
-            raise AssertionError(f"{what}: the cycle left the device path "
-                                 f"({t.get('host_fallback')}, "
-                                 f"{t.get('allocate_error')})")
-        if self.cache.breaker.state_code != 0:
-            raise AssertionError(f"{what}: the breaker is not closed")
 
 
 def _gib(q: str) -> float:
@@ -2407,8 +2455,576 @@ def phase_reschedule(dev, scale=None) -> dict:
     return out
 
 
+# -- the device path's outer ring: prewarm, the sidecar, failover -----------
+
+#: the prewarm phase: the cycle cell's cluster, waves of ``gangs`` gangs
+#: whose pods per gang follow ``sizes``, each wave completing before the
+#: next arrives: the pending task count T walks the buckets 112 -> 128 ->
+#: 160 -> 192 with N fixed, each size twice (the second cycle at a bucket
+#: is the warm one)
+PREWARM = dict(n_nodes=2000, gangs=10,
+               sizes=(10, 10, 10, 12, 12, 13, 13, 17, 17))
+PREWARM_SMALL = dict(PREWARM, n_nodes=50)
+
+
+def _binds_digest(pairs) -> str:
+    import hashlib
+    return hashlib.sha256(json.dumps(sorted(pairs)).encode()).hexdigest()[:16]
+
+
+def prewarm_arm(dev, prewarm: bool, sc) -> dict:
+    """One arm of the prewarm phase, in this process: the Scheduler with
+    ``prewarm`` on or off (the compile watcher installed either way), one
+    cycle a wave. After each cycle the arm waits for the prewarmer's
+    outstanding warm (the schedule period's idle time in a deployment)
+    and records how long that took. Returns the cycle rows, each with
+    the digest of its binds."""
+    from volcano_tpu_torch.ops import fused_choice as fc
+    from volcano_tpu_torch.ops import precompile
+    from volcano_tpu_torch.ops.arrays import bucket
+    from volcano_tpu_torch.scheduler import Scheduler
+    precompile.watcher.install()
+    c = StoreCluster(dev, sc["n_nodes"], 0)
+    c.sched = Scheduler(c.cache, prewarm=prewarm)
+    pw = c.cache.prewarmer
+    fc.fused_choice.launches_prewarm = 0
+    rows, prev = [], []
+    for i, size in enumerate(sc["sizes"]):
+        for g in prev:
+            c.complete(g)
+        c.tpj = size
+        prev = c.submit(sc["gangs"])
+        row = c.run_cycle()
+        c.check(f"prewarm wave {i}", gangs=prev)
+        if row["binds"] != sc["gangs"] * size or row["launches"] <= 0:
+            raise AssertionError(f"prewarm wave {i}: {row}")
+        keys = {k for g in prev for k in c.gangs[g]}
+        row.update(wave=i, T=bucket(sc["gangs"] * size),
+                   binds_digest=_binds_digest(
+                       [(k, v) for k, v in c.cache.binder.binds.items()
+                        if k in keys]))
+        if pw is not None:
+            t0 = time.perf_counter()
+            if not pw.wait(60):
+                raise AssertionError("the prewarm did not finish in 60 s")
+            row["warm_wait_ms"] = (time.perf_counter() - t0) * 1e3
+        rows.append(row)
+    return {"prewarm": prewarm, "rows": rows,
+            "completions": pw.completions if pw else 0,
+            "failures": pw.failures if pw else 0,
+            "launches_prewarm": fc.fused_choice.launches_prewarm}
+
+
+def phase_prewarm(dev, scale=None) -> dict:
+    """The bucket prewarmer at the cycle cell's scale: each arm in its own
+    process (a process's first-use costs are process-wide), prewarm off
+    then on, through the same waves. The binds must be identical cycle for
+    cycle; with prewarm on the warm must complete without a failure and
+    every first cycle past a bucket crossing must make no compile on the
+    session thread. Per crossing: the first cycle at the new bucket beside
+    the next (warm) cycle at the same bucket, in both arms."""
+    sc = dict(PREWARM, **(scale or {}))
+    arms = {}
+    for name in ("off", "on"):
+        proc = subprocess.run(
+            [sys.executable, __file__, "--prewarm-arm", name],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"prewarm arm {name} failed:\n"
+                                 f"{proc.stderr[-3000:]}")
+        arms[name] = json.loads(proc.stdout.strip().splitlines()[-1])
+    off, on = arms["off"]["rows"], arms["on"]["rows"]
+    if [r["binds_digest"] for r in off] != [r["binds_digest"] for r in on]:
+        raise AssertionError("prewarm on and off bound differently")
+    if arms["on"]["failures"] or arms["on"]["completions"] < 1:
+        raise AssertionError(f"prewarm: {arms['on']['completions']} "
+                             f"completions, {arms['on']['failures']} "
+                             f"failures")
+    keys = ("cycle_ms", "dispatch_ms", "session_compiles",
+            "session_compile_s")
+    crossings = []
+    for i in range(1, len(on)):
+        if on[i]["T"] == on[i - 1]["T"]:
+            continue
+        if on[i]["session_compiles"]:
+            raise AssertionError(f"prewarm on: the first cycle at T="
+                                 f"{on[i]['T']} compiled on the session "
+                                 f"thread ({on[i]['session_compiles']})")
+        warm = i + 1 if i + 1 < len(on) and on[i + 1]["T"] == on[i]["T"] \
+            else None
+        row = {"phase": "prewarm", "crossing": f"T {on[i - 1]['T']} -> "
+               f"{on[i]['T']}", "wave": i}
+        for arm, rows in (("off", off), ("on", on)):
+            row[arm] = {"first": {k: rows[i].get(k) for k in keys}}
+            if warm is not None:
+                row[arm]["warm"] = {k: rows[warm].get(k) for k in keys}
+        row["warm_wait_ms_before"] = on[i - 1].get("warm_wait_ms")
+        crossings.append(row)
+        emit(row)
+    if len(crossings) < 2:
+        raise AssertionError(f"only {len(crossings)} bucket crossings")
+    # the cold cost a new bucket adds past the process's first solve, in
+    # the arm without prewarm: the first cycle's dispatch over the warm one
+    cold = [r["off"]["first"]["dispatch_ms"] - r["off"]["warm"]["dispatch_ms"]
+            for r in crossings if "warm" in r["off"]]
+    out = {"phase": "prewarm", "nodes": sc["n_nodes"],
+           "wave_gangs": sc["gangs"], "sizes": list(sc["sizes"]),
+           "crossings": len(crossings), "binds_identical": True,
+           "completions": arms["on"]["completions"],
+           "failures": arms["on"]["failures"],
+           "session_compiles_after_crossing_on": 0,
+           "session_compiles_after_crossing_off": [
+               r["off"]["first"]["session_compiles"] for r in crossings],
+           "cold_dispatch_ms_off": cold,
+           "cold_cost_seen": any(ms > 1.0 for ms in cold),
+           "warm_wait_ms": [r.get("warm_wait_ms") for r in on],
+           "launches": sum(r["launches"] for r in on),
+           "launches_off": sum(r["launches"] for r in off),
+           "launches_prewarm_background": arms["on"]["launches_prewarm"],
+           "first_cycle_session_compiles": [off[0]["session_compiles"],
+                                            on[0]["session_compiles"]]}
+    if not out["cold_cost_seen"]:
+        out["finding"] = ("no cold cost at a new bucket past the process's "
+                          "first solve: every first post-crossing dispatch "
+                          "is within 1 ms of the warm one")
+    if out["launches"] != out["launches_off"]:
+        raise AssertionError("the prewarm's launches mixed into the cycles' "
+                             "counts")
+    emit(out)
+    return out
+
+
+SIDECAR = dict(n_nodes=CYCLE["n_nodes"], n_jobs=CYCLE["n_jobs"],
+               tasks_per_job=10, wave_jobs=10, waves=12)
+
+
+def start_sidecar(sock: str, faults: str = "") -> subprocess.Popen:
+    """``python -m volcano_tpu_torch.parallel.sidecar SOCK`` from the
+    repository root, with ``faults`` as its VOLCANO_FAULTS."""
+    env = dict(os.environ)
+    env.pop("VOLCANO_FAULTS", None)
+    if faults:
+        env["VOLCANO_FAULTS"] = faults
+    return subprocess.Popen(
+        [sys.executable, "-m", "volcano_tpu_torch.parallel.sidecar", sock],
+        cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def connect_sidecar(proc, sock: str, timeout: float = 180.0):
+    from volcano_tpu_torch.parallel import SidecarSolver
+    deadline = time.time() + timeout
+    while True:
+        if proc.poll() is not None:
+            raise AssertionError(f"the sidecar exited {proc.returncode}:\n"
+                                 f"{proc.stdout.read()[-3000:]}")
+        client = SidecarSolver(sock)
+        try:
+            client._connect()
+            return client
+        except OSError:
+            if time.time() > deadline:
+                raise
+            time.sleep(0.1)
+
+
+def stop_sidecar(proc, client) -> None:
+    try:
+        client.shutdown_server()
+        proc.wait(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def _sidecar_row(label, row, twin) -> dict:
+    if row["binds"] != twin["binds"]:
+        raise AssertionError(f"sidecar {label}: {row['binds']} binds, "
+                             f"{twin['binds']} in process")
+    out = {"phase": "sidecar", "cycle": label, "cycle_ms": row["cycle_ms"],
+           "binds": row["binds"], "twin_cycle_ms": twin["cycle_ms"],
+           "twin_launches": twin["launches"]}
+    for k in SIDECAR_KEYS + ("dispatch_ms",):
+        out[k] = row.get(k)
+    return out
+
+
+def phase_sidecar(dev, scale=None) -> dict:
+    """The solver sidecar: ``python -m volcano_tpu_torch.parallel.sidecar``
+    owns the card in its own process; this process's control plane runs
+    on a CPU cache with ``cache.sidecar`` set. The cycle phase's burst and
+    12 steady waves, an unchanged snapshot sent twice, and the evict
+    phase's preempt go through it, each held bind for bind (eviction for
+    eviction) against the same seeded cluster run in process on the card.
+    A second server, armed to fail its first solve, must make the
+    client's cycle report allocate_error and bind nothing on the host."""
+    sc = dict(SIDECAR, **(scale or {}))
+    n, j, tpj, w = (sc["n_nodes"], sc["n_jobs"], sc["tasks_per_job"],
+                    sc["wave_jobs"])
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    # socket paths stay short (a unix socket path is capped near 108
+    # bytes): the servers run from the checkout's root and take the path
+    # relative to it; this process takes it relative to its own cwd
+    socks = [os.path.join("build", f"sidecar-{os.getpid()}-{k}.sock")
+             for k in ("ok", "fail")]
+    t0 = time.perf_counter()
+    procs = [start_sidecar(socks[0]),
+             start_sidecar(socks[1], "sidecar_solve=at:1")]
+    clients = []
+    try:
+        rig = StoreCluster("cpu", n, j, tpj)
+        twin = StoreCluster(dev, n, j, tpj)
+        clients = [connect_sidecar(p, os.path.relpath(os.path.join(REPO, s)))
+                   for p, s in zip(procs, socks)]
+        start_s = time.perf_counter() - t0
+        client = rig.cache.sidecar = clients[0]
+        rows = []
+
+        def both(label, gangs=None):
+            row, tw = rig.run_cycle(), twin.run_cycle()
+            rig.check(f"sidecar {label}", gangs=gangs)
+            if rig.cache.binder.binds != twin.cache.binder.binds:
+                raise AssertionError(f"sidecar {label}: binds differ from "
+                                     f"the in-process run on the card")
+            rows.append(_sidecar_row(label, row, tw))
+            emit(rows[-1])
+            return row
+
+        burst = both("burst", gangs=list(rig.gangs))
+        if not client.on_card:
+            raise AssertionError(f"the sidecar solves on {client.device}, "
+                                 f"not a CUDA device")
+        for i in range(sc["waves"]):
+            gangs = rig.submit(w)
+            twin.submit(w)
+            both(f"wave {i}", gangs=gangs)
+        # a gang that fits no node stays pending: the second request of
+        # the unchanged snapshot ships 0 chunks
+        rig.submit(1, cpu_per_pod=33)
+        twin.submit(1, cpu_per_pod=33)
+        both("stuck gang")
+        quiet = both("unchanged snapshot")
+        if quiet["sidecar_shipped_chunks"] != 0:
+            raise AssertionError(f"an unchanged snapshot shipped "
+                                 f"{quiet['sidecar_shipped_chunks']} chunks")
+        if any(not r["sidecar_launches"] for r in rows):
+            raise AssertionError("a sidecar cycle launched no kernel on "
+                                 "the server")
+        evict = sidecar_preempt(dev, client)
+        emit(evict)
+        failed = sidecar_failure(clients[1])
+        emit(failed)
+    finally:
+        for p, cl in zip(procs, clients + [None] * 2):
+            if cl is not None:
+                stop_sidecar(p, cl)
+            elif p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        for sock in socks:
+            try:
+                os.unlink(os.path.join(REPO, sock))
+            except OSError:
+                pass
+    steady = rows[1:1 + sc["waves"]]
+    out = {"phase": "sidecar", "device": client.device,
+           "server_start_s": start_s,
+           "burst": rows[0], "steady": {
+               k: cycle_stats(steady, k) for k in (
+                   "cycle_ms", "twin_cycle_ms", "sidecar_rtt_ms",
+                   "sidecar_request_bytes", "sidecar_shipped_chunks",
+                   "sidecar_rounds")},
+           "unchanged_snapshot_chunks": quiet["sidecar_shipped_chunks"],
+           "binds_identical": True, "launches": sum(
+               r["sidecar_launches"] for r in rows),
+           "evict": {k: evict[k] for k in ("evictions", "pipelines")},
+           "failure": failed}
+    emit(out)
+    return out
+
+
+def sidecar_preempt(dev, client) -> dict:
+    """The evict phase's preempt through the sidecar (a CPU control plane)
+    and in process on the card: the same evictions and pipelines."""
+    sc = EVICT
+    n = sc["n_nodes"]
+    out = {}
+    for where in ("sidecar", "card"):
+        c = EvictCluster("cpu" if where == "sidecar" else dev, n, sc["cpu"],
+                         sc["mem"], [("q0", None)])
+        if where == "sidecar":
+            c.cache.sidecar = client
+        c.job("low", "q0", "low-priority", 1, sc["low_pods"], 1, 2,
+              nodes=[f"n{i % n}" for i in range(sc["low_pods"])])
+        c.job("high", "q0", "high-priority", sc["gang"], sc["gang"], 2, 4)
+        row = c.cycle()
+        c.check(f"sidecar preempt ({where})", row, True)
+        out[where] = row
+    a, b = out["sidecar"], out["card"]
+    if (a["evicts"], a["pipelined"]) != (b["evicts"], b["pipelined"]) \
+            or not a["evicts"]:
+        raise AssertionError("the preempt through the sidecar differs from "
+                             "the one in process on the card")
+    return {"phase": "sidecar", "part": "preempt",
+            "evictions": len(a["evicts"]), "pipelines": len(a["pipelined"]),
+            "cycle_ms": a["cycle_ms"], "twin_cycle_ms": b["cycle_ms"],
+            "preempt_solve_ms": a["timing"].get("preempt_solve_ms"),
+            "twin_preempt_solve_ms": b["timing"].get("preempt_solve_ms"),
+            "identical": True}
+
+
+def sidecar_failure(client) -> dict:
+    """A cycle against a server armed to fail its solve: the client must
+    report allocate_error and bind nothing through the host."""
+    c = StoreCluster("cpu", 20, 4)
+    c.cache.sidecar = client
+    row = c.run_cycle()
+    t = c.sched.last_cycle_timing
+    if not t.get("allocate_error") or t.get("host_fallback") \
+            or c.cache.binder.binds or not client.on_card:
+        raise AssertionError(f"a failed sidecar solve on {client.device} "
+                             f"was absorbed: {row}")
+    return {"phase": "sidecar", "part": "server_failure",
+            "device": client.device, "allocate_error": True, "binds": 0,
+            "host_fallback": False}
+
+
+FAILOVER = dict(n_nodes=CYCLE["n_nodes"], n_jobs=CYCLE["n_jobs"],
+                tasks_per_job=10, wave_jobs=10, waves_before_crash=3)
+
+
+class FakeClock:
+    def __init__(self, t: float = 1000.0):
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def _store_binds(store) -> dict:
+    return {f"{p.namespace}/{p.name}": p.node_name
+            for p in store.list("pods") if p.node_name}
+
+
+def failover_golden(dev, sc) -> dict:
+    """The uninterrupted run: the burst, the waves before the crash, the
+    crashed wave and the wave after takeover, one leader, one cycle
+    each."""
+    g = StoreCluster(dev, sc["n_nodes"], sc["n_jobs"], sc["tasks_per_job"])
+    g.sched.run_once()
+    for _ in range(sc["waves_before_crash"] + 2):
+        g.submit(sc["wave_jobs"])
+        g.sched.run_once()
+    return dict(g.cache.binder.binds)
+
+
+def phase_failover(dev, scale=None) -> dict:
+    """Leader-elected failover with a warm standby, in one process over
+    one store at the cycle cell's scale. A leads (fenced writes, the bind
+    journal) through the burst and steady waves while B, a standby cache
+    on the card, runs shadow_cycle() before each of A's cycles. A crashes
+    at the bind_commit of a wave's replay (journaled, not dispatched); the
+    elector's clock passes the lease, B takes over, reconciles, and runs
+    its first cycle on the next wave, beside C, a cold standby (no
+    shadows, fake effectors) deciding the same wave. Checks: every pod
+    bound once (a store interceptor), the binds equal the uninterrupted
+    run's, no intent left, A's late write fenced, gangs whole and no node
+    over its allocatable, the shadows wrote nothing and B's arena equals
+    its mirror, B's first cycle ships a delta, flattens warm and launches
+    the kernel (every launch held against the plain version)."""
+    from volcano_tpu_torch.cache import (
+        FakeBinder, FakeEvictor, FakeStatusUpdater, FakeVolumeBinder,
+        SchedulerCache,
+    )
+    from volcano_tpu_torch.cache.cache import DefaultBinder, DefaultEvictor
+    from volcano_tpu_torch.client import FencedError
+    from volcano_tpu_torch.ops import fused_choice as fc
+    from volcano_tpu_torch.reschedule import reconcile_migration_intents
+    from volcano_tpu_torch.resilience import (
+        BindIntentJournal, faults, reconcile_bind_intents,
+    )
+    from volcano_tpu_torch.scheduler import Scheduler
+    from volcano_tpu_torch.ops import precompile
+    from volcano_tpu_torch.utils import LeaderElector, LeaseLock
+    sc = dict(FAILOVER, **(scale or {}))
+    w = sc["wave_jobs"]
+    precompile.watcher.install()
+    golden = failover_golden(dev, sc)
+    clock = FakeClock()
+    a = StoreCluster(dev, sc["n_nodes"], sc["n_jobs"], sc["tasks_per_job"])
+    store = a.store
+    store.clock = clock
+    a.cache.binder = DefaultBinder(store)
+    a.cache.evictor = DefaultEvictor(store)
+    bind_writes: dict = {}
+
+    def audit(verb, kind, obj):
+        if kind == "pods" and verb == "update" and obj.node_name:
+            prev = store.try_get("pods", obj.name, obj.namespace)
+            if prev is None or prev is obj or not prev.node_name:
+                key = f"{obj.namespace}/{obj.name}"
+                bind_writes[key] = bind_writes.get(key, 0) + 1
+        return obj
+
+    store.add_interceptor(audit)
+
+    def elector(identity):
+        e = LeaderElector(LeaseLock(store, "volcano"), identity=identity,
+                          lease_duration=10.0, clock=clock)
+        if not e.step():
+            raise AssertionError(f"{identity} did not acquire the lease")
+        return e
+
+    ea = elector("A")
+    a.cache.install_fencing(ea.fencing_token)
+    journal_a = BindIntentJournal(a.cache.fenced_cluster, identity="A",
+                                  clock=clock)
+    a.cache.bind_journal = journal_a
+    standby = []
+    for _ in range(2):
+        cache = SchedulerCache(store, device=dev)
+        cache.run()
+        standby.append((cache, Scheduler(cache)))
+    (cache_b, sched_b), (cache_c, sched_c) = standby
+    for eff, fake in (("binder", FakeBinder), ("evictor", FakeEvictor),
+                      ("status_updater", FakeStatusUpdater),
+                      ("volume_binder", FakeVolumeBinder)):
+        setattr(cache_c, eff, fake())
+    shadows = []
+
+    def shadow():
+        rv = store._rv
+        fc.fused_choice.launches = 0
+        t0 = time.perf_counter()
+        sched_b.shadow_cycle()
+        shadows.append({"ms": (time.perf_counter() - t0) * 1e3,
+                        "launches": fc.fused_choice.launches})
+        if store._rv != rv:
+            raise AssertionError("a shadow cycle wrote to the store")
+
+    def lead(what):
+        fc.fused_choice.launches = 0
+        t0 = time.perf_counter()
+        a.sched.run_once()
+        ms = (time.perf_counter() - t0) * 1e3
+        error = bool(a.sched.last_cycle_timing.get("allocate_error"))
+        if not error:
+            journal_a.sweep()   # once a cycle, as the HA loop does
+        return {"cycle": what, "ms": ms, "launches": fc.fused_choice.launches,
+                "error": error}
+
+    leader_rows = []
+    shadow()
+    leader_rows.append(lead("burst"))
+    for i in range(sc["waves_before_crash"]):
+        a.submit(w)
+        shadow()
+        leader_rows.append(lead(f"wave {i}"))
+    crash_gangs = a.submit(w)
+    shadow()
+    faults.arm("bind_commit", at=(1,))
+    try:
+        leader_rows.append(lead("crashed wave"))
+    finally:
+        faults.reset()
+    crashed = [k for g in crash_gangs for k in a.gangs[g]]
+    bound = _store_binds(store)
+    if not leader_rows[-1]["error"] or any(k in bound for k in crashed) \
+            or not store.list("bindintents"):
+        raise AssertionError("A's crash at bind_commit did not leave a "
+                             "journaled, undispatched wave")
+    if any(r["error"] for r in leader_rows[:-1]):
+        raise AssertionError(f"a leader cycle failed: {leader_rows}")
+    # A is gone: the clock passes the lease, B takes over and reconciles
+    clock.t += 11.0
+    t0 = time.perf_counter()
+    eb = elector("B")
+    cache_b.install_fencing(eb.fencing_token)
+    summary = reconcile_bind_intents(store, eb.fencing_token)
+    migration = reconcile_migration_intents(store, eb.fencing_token)
+    cache_b.bind_journal = journal_b = BindIntentJournal(
+        cache_b.fenced_cluster, identity="B", clock=clock)
+    takeover_ms = (time.perf_counter() - t0) * 1e3
+    if summary["redriven"] != len(crashed) or summary["lost"] \
+            or summary["conflicts"]:
+        raise AssertionError(f"the takeover reconcile: {summary}")
+    victim = store.get("pods", crashed[0].split("/")[1], "bench")
+    before = repr(victim)
+    try:
+        a.cache.fenced_cluster.update("pods", victim)
+    except FencedError:
+        pass
+    else:
+        raise AssertionError("the deposed leader's late write landed")
+    if repr(store.get("pods", victim.name, "bench")) != before:
+        raise AssertionError("the fenced write changed the pod")
+    # the next wave: the cold standby's first cycle, then B's
+    next_gangs = a.submit(w)
+    fc.fused_choice.launches = 0
+    t1 = time.perf_counter()
+    sched_c.run_once()
+    cold = {"ms": (time.perf_counter() - t1) * 1e3,
+            "launches": fc.fused_choice.launches,
+            **{k: sched_c.last_cycle_timing.get(k) for k in (
+                "arena_full_ship", "arena_bytes_shipped", "flatten_mode",
+                "dispatch_ms", "session_compiles")}}
+    fc.fused_choice.launches = 0
+    t1 = time.perf_counter()
+    with KernelAudit() as kaudit:
+        sched_b.run_once()
+    first = {"ms": (time.perf_counter() - t1) * 1e3,
+             "launches": fc.fused_choice.launches,
+             **{k: sched_b.last_cycle_timing.get(k) for k in (
+                 "arena_full_ship", "arena_bytes_shipped", "flatten_mode",
+                 "dispatch_ms", "session_compiles", "allocate_error")}}
+    journal_b.sweep()
+    binds = _store_binds(store)
+    next_keys = [k for g in next_gangs for k in a.gangs[g]]
+    if {k: binds.get(k) for k in next_keys} != {
+            k: cache_c.binder.binds.get(k) for k in next_keys}:
+        raise AssertionError("the cold standby decided the wave differently")
+    if first["allocate_error"] or first["arena_full_ship"] \
+            or first["flatten_mode"] == "cold" or first["launches"] <= 0 \
+            or kaudit.summary()["launches_checked"] != first["launches"]:
+        raise AssertionError(f"B's first cycle was not warm: {first}")
+    dups = {k: n for k, n in bind_writes.items() if n != 1}
+    if dups or set(bind_writes) != set(binds):
+        raise AssertionError(f"duplicate or unaudited binds: {dups}")
+    a.check_placement("failover", binds, gangs=list(a.gangs))
+    if binds != golden:
+        diff = sorted(k for k in set(binds) | set(golden)
+                      if binds.get(k) != golden.get(k))
+        raise AssertionError(f"{len(diff)} binds differ from the "
+                             f"uninterrupted run: {diff[:5]}")
+    if store.list("bindintents"):
+        raise AssertionError("bind intents left after the takeover")
+    dc = cache_b.device_cache
+    for dev_buf, host in ((dc._dev_f, dc._host_f), (dc._dev_i, dc._host_i)):
+        if not torch.equal(dev_buf.reshape(-1).cpu(), torch.from_numpy(host)):
+            raise AssertionError("B's resident arena drifted from its "
+                                 "host mirror")
+    out = {"phase": "failover", "nodes": sc["n_nodes"],
+           "pods_bound": len(binds), "golden_equal": True,
+           "lost": 0, "duplicates": 0, "intents_left": 0,
+           "deposed_write_fenced": True, "reconcile": summary,
+           "migration_reconcile": migration,
+           "takeover_ms": takeover_ms,
+           "takeover_to_first_cycle_ms": takeover_ms + first["ms"],
+           "leader_cycles": leader_rows, "shadows": shadows,
+           "first_cycle": first, "cold_standby_first_cycle": cold,
+           "b_arena_matches_mirror": True, "audit": kaudit.summary(),
+           "launches": sum(r["launches"] for r in leader_rows)
+           + sum(r["launches"] for r in shadows) + first["launches"]
+           + cold["launches"]}
+    emit(out)
+    return out
+
+
 PHASES = ("kernel", "edges", "small", "solve", "profile", "cycle", "hdrf",
-          "evict", "sequential", "sharded", "reschedule")
+          "evict", "sequential", "sharded", "reschedule", "prewarm",
+          "sidecar", "failover")
 
 
 def main() -> int:
@@ -2421,7 +3037,12 @@ def main() -> int:
                     help="comma-separated subset of %(default)s (the "
                          "device and build phases always run; the last two "
                          "lines print only when every phase runs)")
-    phases = ap.parse_args().phases.split(",")
+    ap.add_argument("--prewarm-arm", choices=("on", "off"),
+                    help="run one arm of the prewarm phase in this process "
+                         "and print its JSON (the prewarm phase starts "
+                         "each arm this way)")
+    args = ap.parse_args()
+    phases = args.phases.split(",")
     if not set(phases) <= set(PHASES):
         ap.error(f"unknown phases {set(phases) - set(PHASES)}")
     if not torch.cuda.is_available():
@@ -2429,6 +3050,10 @@ def main() -> int:
         return 2
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    if args.prewarm_arm:
+        print(json.dumps(prewarm_arm(dev, args.prewarm_arm == "on",
+                                     PREWARM)), flush=True)
+        return 0
     info = phase_device()
     seconds = {}
 
@@ -2445,21 +3070,25 @@ def main() -> int:
         ("profile", phase_profile), ("cycle", phase_cycle),
         ("hdrf", phase_hdrf), ("evict", phase_evict),
         ("sequential", phase_sequential), ("sharded", phase_sharded),
-        ("reschedule", phase_reschedule))
+        ("reschedule", phase_reschedule), ("prewarm", phase_prewarm),
+        ("sidecar", phase_sidecar), ("failover", phase_failover))
         if name in phases}
     emit({"phase": "seconds", **seconds})
     if set(phases) != set(PHASES):
         return 0
-    krows, cyc, hdrf, evict, sharded, resched = (
+    krows, cyc, hdrf, evict, sharded, resched, prewarm, sidecar, failover = (
         out[k] for k in ("kernel", "cycle", "hdrf", "evict", "sharded",
-                         "reschedule"))
+                         "reschedule", "prewarm", "sidecar", "failover"))
     main_launches = out["solve"][1]
     head = next(r for r in krows if r["R"] == 2 and r["eligible_rows"]
                 > 0.5 * r["T"] and r["families"] == ["binpack"])
     # the main path: the scheduling cycle's measured burst and timed
     # steady cycles, the hdrf cycles, the eviction cycles, the sharded
-    # cycles and the two reschedule passes, each counted from 0 (the
-    # sequential mode launches no kernel)
+    # cycles, the two reschedule passes, the prewarm arm's cycles (its
+    # background warms counted apart), the sidecar server's solves (its
+    # count read before and after each request) and the failover's
+    # leader, shadow, standby and cold-twin cycles, each counted from 0
+    # (the sequential mode launches no kernel)
     cycle_rows = [cyc["burst"]] + cyc["steady"]
     evict_launches = sum(r["launches"] + r["next_cycle_launches"]
                          for r in evict)
@@ -2472,12 +3101,18 @@ def main() -> int:
     resched_launches = sum(resched[k]["launches"]
                            for k in ("first", "second"))
     resched_k = resched["kernel"]
+    ring = {"prewarm": prewarm["launches"], "sidecar": sidecar["launches"],
+            "failover": failover["launches"]}
+    if min(ring.values()) <= 0:
+        raise AssertionError(f"a path of the outer ring launched no kernel: "
+                             f"{ring}")
     emit({"kernels": [{
         "name": "fused_choice", "route": "cuda",
         "source": "volcano_tpu_torch/csrc/fused_choice.cu",
         "replaces": "volcano_tpu/ops/pallas_kernels.py:201",
         "launches": sum(r["launches"] for r in cycle_rows + hdrf["rows"])
-        + evict_launches + sharded_launches + resched_launches,
+        + evict_launches + sharded_launches + resched_launches
+        + sum(ring.values()),
         "launches_sharded": sharded_launches,
         "launches_sharded_hdrf_prefilter":
             sharded["hdrf"]["prefilter_launches"],
@@ -2490,6 +3125,10 @@ def main() -> int:
                                        for r in hdrf["rows"]),
         "launches_evict_cycles": evict_launches,
         "launches_reschedule": resched_launches,
+        "launches_prewarm_cycles": ring["prewarm"],
+        "launches_prewarm_background": prewarm["launches_prewarm_background"],
+        "launches_sidecar_server": ring["sidecar"],
+        "launches_failover": ring["failover"],
         "launches_headline_solve": main_launches,
         "max_abs_err": max(r["max_abs_err"]
                            for r in krows + [shard_k, resched_k]),

@@ -15,7 +15,10 @@ elect / reserve actions against the JAX package's, on the CPU.
   JAX package executes 3 moves off the hole, fragmentation 1.0 -> 0.9333,
   and the port does the same.
 - The migration-intent journal: TestMigrationIntentJournal through both
-  packages' journals and reconciliation.
+  packages' journals and reconciliation, and TestKillTheLeaderMidMigration
+  (a leader crashing between its journaled wave and its evictions; a
+  deposed leader's journal fenced) through both packages' elector, bind
+  journal and fencing.
 - elect then reserve (tests/test_preempt_reclaim.py::TestElectReserve)
   through both packages.
 - Failures on a CPU arena: an armed ``reschedule_dispatch`` and a solve
@@ -399,6 +402,103 @@ def test_elect_then_reserve_locks_node_equals_jax():
     got = _elect_reserve("torch")
     assert got == _elect_reserve("jax")
     assert got == ("pg1", ["n2"])   # the max-idle node is locked
+
+
+# ---------------------------------------------------------------------------
+# kill the leader mid-migration (tests/test_reschedule.py::
+# TestKillTheLeaderMidMigration)
+# ---------------------------------------------------------------------------
+
+class FakeClock:
+    def __init__(self, t=1000.0):
+        self.t = t
+
+    def __call__(self):
+        return self.t
+
+
+def _evicted(store):
+    return sorted(p.name for p in store.list("pods", namespace="t")
+                  if p.deletion_timestamp is not None)
+
+
+def _leader(pkg, store, identity, clock):
+    le = pkg_mod(pkg, "utils.leader_election")
+    elector = le.LeaderElector(le.LeaseLock(store, "volcano"),
+                               identity=identity, lease_duration=10.0,
+                               clock=clock)
+    assert elector.step()
+    return elector
+
+
+def _fenced_scheduler(pkg, store, elector, clock):
+    """A scheduler whose writes carry ``elector``'s token and whose binds
+    are journaled, as Scheduler.run_with_leader_election wires it."""
+    cache, sched = resched_scheduler(pkg, store)
+    cache.install_fencing(elector.fencing_token)
+    cache.bind_journal = pkg_mod(pkg, "resilience").BindIntentJournal(
+        cache.fenced_cluster, identity=elector.identity, clock=clock)
+    return sched
+
+
+def _crash_between_journal_and_evictions(pkg):
+    """The leader crashes after the wave's migration intent is durable
+    and before any eviction dispatches: the successor abandons the wave
+    (never re-drives a stale eviction), pod truth is untouched — zero
+    lost, zero duplicate binds — and its own pass re-solves."""
+    clock = FakeClock()
+    store = fragmented_store(pkg)
+    store.clock = clock
+    binds_before = {p.name: p.node_name
+                    for p in store.list("pods", namespace="t")}
+    faults = pkg_mod(pkg, "resilience").faults
+    sched_a = _fenced_scheduler(pkg, store, _leader(pkg, store, "A", clock),
+                                clock)
+    faults.arm("migration_commit", at=(1,))
+    try:
+        _run(pkg, sched_a.run_once)   # FaultError contained by the action
+    finally:
+        faults.reset()
+    out = [len(store.list("migrationintents")), _evicted(store)]
+    clock.t += 11   # A crashes; B takes over past lease expiry
+    eb = _leader(pkg, store, "B", clock)
+    out.append(pkg_mod(pkg, "reschedule").reconcile_migration_intents(
+        store, eb.fencing_token))
+    out += [store.list("migrationintents"),
+            {p.name: p.node_name
+             for p in store.list("pods", namespace="t")} == binds_before,
+            _evicted(store)]
+    _run(pkg, _fenced_scheduler(pkg, store, eb, clock).run_once)
+    out += [_evicted(store), len(store.list("migrationintents"))]
+    return out
+
+
+def _deposed_leader_cannot_journal(pkg):
+    clock = FakeClock()
+    store = fragmented_store(pkg)
+    store.clock = clock
+    ea = _leader(pkg, store, "A", clock)
+    client = pkg_mod(pkg, "client")
+    journal = pkg_mod(pkg, "reschedule").MigrationIntentJournal(
+        client.FencedStore(store, ea.fencing_token), identity="A",
+        clock=clock)
+    clock.t += 11
+    _leader(pkg, store, "B", clock)
+    with pytest.raises(client.FencedError):
+        journal.record([mk(pkg, "t/a-0", "ja", "n0", "n1", 2000.0)])
+    return store.list("migrationintents")
+
+
+def test_crash_between_journal_and_evictions_abandons_cleanly_equals_jax():
+    got = _crash_between_journal_and_evictions("torch")
+    assert got == _crash_between_journal_and_evictions("jax")
+    assert got == [1, [], {"intents": 1, "settled": 0, "abandoned": 2},
+                   [], True, [], ["a-0", "b-0"], 1]
+
+
+def test_deposed_leader_cannot_journal_new_waves_equals_jax():
+    assert _deposed_leader_cannot_journal("torch") == []
+    assert _deposed_leader_cannot_journal("jax") == []
 
 
 # ---------------------------------------------------------------------------

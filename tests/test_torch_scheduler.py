@@ -12,8 +12,9 @@ the Statement replay) against the JAX package's Scheduler.
   cycle in both packages, and the port's arena re-ships after it. On a
   CUDA arena the port has no host fallback: the failure is the allocate
   action's error.
-- Options the port does not have raise NotImplementedError naming their
-  ROADMAP item, and so would an unported action or mode (stand-ins
+- compile_cache_dir and prewarm (ROADMAP A10) wire the precompile
+  pipeline; an unported action or mode would raise NotImplementedError
+  naming its ROADMAP item (stand-ins
   registered as unported: every action and mode of the JAX package is
   ported), at conf loading or before any dispatch, never reaching the
   host fallback.
@@ -185,10 +186,22 @@ def test_unported_conf_raises_at_loading(name):
 @pytest.mark.parametrize("kw,item", [
     ({"compile_cache_dir": "cc"}, "A10"), ({"prewarm": True}, "A10"),
 ])
-def test_unported_scheduler_options_raise(kw, item):
-    Scheduler = pkg_mod("torch", "scheduler").Scheduler
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        Scheduler(_cpu_cache(), **kw)
+def test_unported_scheduler_options_raise(kw, item, tmp_path, monkeypatch):
+    """The options ROADMAP ``item`` ported no longer raise: they wire the
+    precompile pipeline (ops.precompile) as the JAX Scheduler does."""
+    from volcano_tpu_torch.ops import _build, precompile
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
+    monkeypatch.setattr(precompile, "_configured_dir", None)
+    kw = {k: str(tmp_path / v) if k == "compile_cache_dir" else v
+          for k, v in kw.items()}
+    cache = _cpu_cache()
+    sched = pkg_mod("torch", "scheduler").Scheduler(cache, **kw)
+    assert item == "A10"
+    if "prewarm" in kw:
+        assert isinstance(cache.prewarmer, precompile.BucketPrewarmer)
+    else:
+        assert sched.compile_cache_dir == kw["compile_cache_dir"]
+        assert _build.BUILD_DIR == tmp_path / "cc"
 
 
 def test_unported_mode_never_reaches_the_host_fallback(tmp_path,

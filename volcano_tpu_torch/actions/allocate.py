@@ -13,20 +13,26 @@ Two execution modes:
   Scheduler's solver_mode "sharded", or "auto" past its byte budget) the
   solve is the node-axis sharded one over the sharded arena
   (ops.device_cache.ShardedDeviceCache +
-  parallel.solve_allocate_sharded_arena).
+  parallel.solve_allocate_sharded_arena). With a solver sidecar on the
+  cache (parallel.sidecar.SidecarSolver) the packed snapshot ships to
+  the sidecar process that owns the card instead, and its assignments
+  replay the same way.
 - host: a faithful per-task loop (predicate -> prioritize -> best node ->
   allocate/pipeline) used when custom host-only plugins are present, for
   parity testing, and as the reference semantics oracle. It also finishes
   a session whose device path failed, but only for a CPU arena: on a CUDA
-  arena the failure is the action's error.
+  arena, or a sidecar that solves on a CUDA device, the failure is the
+  action's error.
 """
 
 from __future__ import annotations
 
 import logging
+from types import SimpleNamespace
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..api import Resource, TaskStatus
 from ..api.unschedule_info import (
@@ -43,12 +49,14 @@ _UNRESOLVED = object()  # sentinel: _pending_tasks resolves the key itself
 
 def _on_card(ssn, dc=None) -> bool:
     """True when the session's cache keeps its solver arena on a CUDA
-    device, or the arena ``dc`` is a sharded one with a CUDA shard. The
-    host-oracle fallback is kept only for a CPU arena."""
+    device, the arena ``dc`` is a sharded one with a CUDA shard, or the
+    session's solver sidecar named a CUDA device. The host-oracle
+    fallback is kept only for a CPU arena (or a sidecar on the CPU)."""
     dev = getattr(ssn.cache, "device", None)
     mesh = getattr(dc, "mesh", None)
     return getattr(dev, "type", None) == "cuda" or (
-        mesh is not None and any(d.type == "cuda" for d in mesh.devices))
+        mesh is not None and any(d.type == "cuda" for d in mesh.devices)
+    ) or getattr(getattr(ssn, "sidecar", None), "on_card", False)
 
 
 def _task_order_key(ssn):
@@ -363,6 +371,7 @@ class AllocateAction(Action):
                 + params["balanced_weight"]) else "spread"
 
         dc = getattr(ssn, "device_cache", None)
+        sidecar = getattr(ssn, "sidecar", None)
         # which arena a device fault must invalidate (and whose devices
         # decide whether the host oracle may finish the session): the
         # packed one, or the sharded one in a sharded session
@@ -373,6 +382,8 @@ class AllocateAction(Action):
                         use_drf_order=use_drf_order,
                         use_hdrf_order=use_hdrf_order,
                         work_conserving=work_conserving)
+        host_params = params
+        via_sidecar = False
         try:
             # device-path circuit-breaker scope: anything that throws out
             # of the dispatch (a CUDA error, OOM, an injected fault) counts
@@ -397,6 +408,7 @@ class AllocateAction(Action):
                 # shards owning them (0 bytes when nothing changed). At D=1
                 # the solve is the packed path's with no collective
                 from ..parallel import solve_allocate_sharded_arena
+                from ..resilience.transient import retry_transient
                 t1 = _time.perf_counter()
                 fbuf, ibuf, layout = arr.packed()
                 timing["pack_ms"] = (_time.perf_counter() - t1) * 1e3
@@ -413,14 +425,50 @@ class AllocateAction(Action):
                 timing["arena_full_ship"] = float(sdc.last_full_ship)
                 timing["arena_shard_bytes"] = \
                     [float(b) for b in sdc.last_shard_bytes]
+                pw = getattr(ssn, "prewarmer", None)
+                if pw is not None and pw.mesh is None:
+                    # a sharded session pre-warms the sharded solve too
+                    pw.mesh = sdc.mesh
+                # the inputs the bucket prewarmer re-lays into the next
+                # bucket (ops.precompile)
+                sdc.last_solve_flags = dict(layout=layout, **solve_kw)
+                sdc.last_solve_inputs = (fbuf, ibuf, host_params)
                 # the sharded solve always runs the overflow phases under
                 # queue caps: it takes no work_conserving flag
                 kw = {k: v for k, v in solve_kw.items()
                       if k != "work_conserving"}
                 t1 = _time.perf_counter()
-                res = solve_allocate_sharded_arena(*bufs, params, sdc.mesh,
-                                                   **kw)
+                # one re-send of a transport failure (never of a CUDA
+                # error, resilience.transient). update() already
+                # scattered: the retry re-dispatches on the updated arena,
+                # and a failure that stays reaches the fallback below,
+                # which invalidates it
+                res = retry_transient(
+                    lambda: solve_allocate_sharded_arena(
+                        *bufs, params, sdc.mesh, **kw),
+                    what="sharded solver dispatch")
                 timing["dispatch_ms"] = (_time.perf_counter() - t1) * 1e3
+            elif sidecar is not None:
+                # process boundary: ship the packed snapshot to the solver
+                # sidecar (which owns the card) and replay its
+                # assignments; its arena is the server's
+                t1 = _time.perf_counter()
+                fbuf, ibuf, layout = arr.packed()
+                timing["pack_ms"] = (_time.perf_counter() - t1) * 1e3
+                t1 = _time.perf_counter()
+                assigned, kind, info = sidecar.solve(
+                    fbuf, ibuf, layout, params, **solve_kw)
+                timing["dispatch_ms"] = (_time.perf_counter() - t1) * 1e3
+                timing["sidecar_rtt_ms"] = sidecar.last_rtt_ms
+                timing["sidecar_request_bytes"] = \
+                    float(sidecar.last_request_bytes)
+                for k in ("rounds", "shipped_chunks", "launches"):
+                    if k in info:
+                        timing[f"sidecar_{k}"] = float(info[k])
+                # the reply's buffers are read-only: copy into tensors
+                res = SimpleNamespace(assigned=torch.tensor(assigned),
+                                      kind=torch.tensor(kind))
+                via_sidecar = True
             elif dc is not None:
                 # device-resident buffers: update() scatters the exact
                 # dirty chunks in place and the solve reads views of the
@@ -433,6 +481,10 @@ class AllocateAction(Action):
                 fbuf, ibuf, layout = arr.packed()
                 timing["pack_ms"] = (_time.perf_counter() - t1) * 1e3
                 params = dc.params_device(params)
+                # the inputs the bucket prewarmer re-lays into the next
+                # bucket (ops.precompile)
+                dc.last_solve_flags = dict(layout=layout, **solve_kw)
+                dc.last_solve_inputs = (fbuf, ibuf, host_params)
                 t1 = _time.perf_counter()
                 f2d, i2d = dc.update(fbuf, ibuf, layout)
                 timing["delta_plan_ms"] = (_time.perf_counter() - t1) * 1e3
@@ -457,17 +509,19 @@ class AllocateAction(Action):
         # dispatch/collect split: the result's device->host copy starts
         # now (ops.pipeline.start_readback), so it overlaps the host work
         # below: replay preparation (the node-name table the Statement
-        # replay indexes) and a young-generation gc pass (collection is
+        # replay indexes), the bucket-prewarm occupancy check
+        # (ops.precompile) and a young-generation gc pass (collection is
         # disabled during the cycle — see Scheduler.run_once).
         # pipeline_solver=False keeps the strictly serial order for parity
-        # testing.
+        # testing. A sidecar's result is on the host already.
         # ------------------------------------------------------------------
         from ..ops.pipeline import start_readback
         from ..ops.solver import COMPACT_KIND_SHIFT, decode_compact
         # one int16 readback instead of two int32 ones; above 16k nodes the
-        # node index overflows the int16 packing, and the sharded solve has
-        # no compact form
-        compact_ok = not sharded and arr.N <= (1 << COMPACT_KIND_SHIFT)
+        # node index overflows the int16 packing, and neither the sharded
+        # solve nor the sidecar has a compact form
+        compact_ok = not (sharded or via_sidecar) \
+            and arr.N <= (1 << COMPACT_KIND_SHIFT)
         result = (res.compact,) if compact_ok else (res.assigned, res.kind)
         pipelined = bool(getattr(ssn, "pipeline_solver", True))
         node_names = None
@@ -481,6 +535,7 @@ class AllocateAction(Action):
             # can be built before the results exist
             statements = [ssn.statement(defer_events=True)
                           for _ in job_order]
+            self._observe_prewarm(ssn, arr, fault_dc)
             if result[0].device.type != "cpu":
                 # young-gen GC only when the solve runs on a real
                 # accelerator: there the readback wait is genuine host
@@ -513,6 +568,11 @@ class AllocateAction(Action):
             self._device_fault_fallback(ssn, fault_dc, timing, breaker)
             return
         timing["readback_ms"] = (_time.perf_counter() - t1) * 1e3
+        if not pipelined:
+            # serial mode still pre-warms (after the readback), so turning
+            # the overlap off doesn't also disable the first-use
+            # protection
+            self._observe_prewarm(ssn, arr, fault_dc)
         if breaker is not None:
             # a full dispatch+collect round-trip with sane output: the
             # device path is healthy (closes a half-open breaker)
@@ -586,6 +646,19 @@ class AllocateAction(Action):
         timing["host_fallback"] = 1.0
         ssn.solver_options["_post_host_jobs"] = []
         self._execute_host(ssn)
+
+    @staticmethod
+    def _observe_prewarm(ssn, arr, dc) -> None:
+        """Feed the bucket prewarmer (ops.precompile.BucketPrewarmer) the
+        live occupancy; a trigger only spawns a daemon thread, so this is
+        safe inside the dispatch/collect overlap window."""
+        pw = getattr(ssn, "prewarmer", None)
+        if pw is None or dc is None:
+            return
+        try:
+            pw.observe(arr, dc)
+        except Exception:  # noqa: BLE001 — prewarm is advisory
+            log.exception("bucket prewarm observe failed")
 
     @staticmethod
     def _check_solver_output(assigned, kind, n_tasks: int,

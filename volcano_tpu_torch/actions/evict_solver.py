@@ -193,13 +193,15 @@ def _uniform_job_arrays(arr, job_order):
 
 
 def run_evict_solver(ssn, mode: str, skip_jobs=()):
-    """Flatten claimers + victims, solve on the arena's device, replay.
+    """Flatten claimers + victims, solve on the arena's device (or through
+    the session's solver sidecar), replay.
     Returns the claimer jobs processed (the host loops' under_request set —
     preempt's intra-job phase must run on exactly these), [] when there was
     nothing to do, or None when the device path is unavailable (circuit
     breaker open, or the solve itself failed) on a CPU arena — the caller
-    then degrades to its host loop for this cycle. On a CUDA arena either
-    failure raises instead: the solve has no host fallback there."""
+    then degrades to its host loop for this cycle. On a CUDA arena (or a
+    sidecar on a CUDA device) either failure raises instead: the solve has
+    no host fallback there."""
     import time
 
     from ..ops import flatten_snapshot
@@ -243,29 +245,41 @@ def run_evict_solver(ssn, mode: str, skip_jobs=()):
          varrays["job_count"]) = uniform
     vnp = {k: np.asarray(v) for k, v in varrays.items()}
     dev = getattr(ssn.cache, "device", None)
+    sidecar = getattr(ssn, "sidecar", None)
     timing = ssn.solver_options.setdefault("timing", {})
     t0 = time.perf_counter()
     try:
         # breaker scope: a throwing evict dispatch/collect (or an injected
         # fault) counts one consecutive device failure
         faults.fire("evict_dispatch")
-        if uniform is not None:
-            # gang fast path: one solve step per JOB (solve_evict_uniform)
-            res = solve_evict_uniform(
-                arr.numpy_dict(), vnp, params, score_families=families,
-                require_freed_covers=False, stop_at_need=True, device=dev)
-        else:
-            res = solve_evict(
+        if sidecar is not None:
+            # process boundary: the eviction solve ships to the solver
+            # sidecar too (job_req in the victim dict selects its fast
+            # path)
+            assigned, evicted_by = sidecar.solve_evict(
                 arr.numpy_dict(), vnp, params, score_families=families,
                 require_freed_covers=not preempt,
-                allow_revert=preempt, stop_at_need=preempt, device=dev)
-        try:
-            # one int16 readback carries both outputs
-            assigned, evicted_by = decode_evict_compact(
-                res.compact, arr.task_init_req.shape[0])
-        except ValueError:  # >32k nodes/jobs: indices overflow packing
-            assigned = res.assigned.cpu().numpy()
-            evicted_by = res.evicted_by.cpu().numpy()
+                allow_revert=preempt, stop_at_need=preempt)
+        else:
+            if uniform is not None:
+                # gang fast path: one solve step per JOB
+                # (solve_evict_uniform)
+                res = solve_evict_uniform(
+                    arr.numpy_dict(), vnp, params, score_families=families,
+                    require_freed_covers=False, stop_at_need=True,
+                    device=dev)
+            else:
+                res = solve_evict(
+                    arr.numpy_dict(), vnp, params, score_families=families,
+                    require_freed_covers=not preempt,
+                    allow_revert=preempt, stop_at_need=preempt, device=dev)
+            try:
+                # one int16 readback carries both outputs
+                assigned, evicted_by = decode_evict_compact(
+                    res.compact, arr.task_init_req.shape[0])
+            except ValueError:  # >32k nodes/jobs: indices overflow packing
+                assigned = res.assigned.cpu().numpy()
+                evicted_by = res.evicted_by.cpu().numpy()
     except Exception:
         if breaker is not None:
             breaker.record_failure()

@@ -341,6 +341,13 @@ class SchedulerCache:
         # sharded_byte_budget bytes (0 = never auto-shard)
         self.solver_mode = None
         self.sharded_byte_budget = 0
+        # optional solver-sidecar client (parallel.sidecar.SidecarSolver):
+        # when set, allocate and preempt/reclaim ship their solves to the
+        # sidecar process that owns the card; this cache then runs on
+        # device="cpu". The Scheduler installs a BucketPrewarmer
+        # (ops.precompile) here when prewarm is on
+        self.sidecar = None
+        self.prewarmer = None
         # gates the allocate action's dispatch/collect overlap
         self.pipeline_solver = True
         # device-path circuit breaker (resilience.CircuitBreaker): the
@@ -349,7 +356,8 @@ class SchedulerCache:
         self.breaker = None
         # crash-safe HA seams, None unless installed: the write-ahead
         # bind-intent journal (consumed by Statement.commit /
-        # flush_bulk_commit; its recovery side is ROADMAP A12) and the
+        # flush_bulk_commit; resilience/recovery.py reconciles it at
+        # takeover, Scheduler.run_with_leader_election) and the
         # fenced store handle the effectors write through once fencing
         # is on (install_fencing)
         self.bind_journal = None

@@ -135,6 +135,10 @@ class Session:
         self.sharded_device_cache = getattr(cache, "sharded_device_cache",
                                             None)
         self.solver_mode = getattr(cache, "solver_mode", None)
+        # the solver-sidecar client and the bucket prewarmer, when the
+        # cache carries them (parallel.sidecar, ops.precompile)
+        self.sidecar = getattr(cache, "sidecar", None)
+        self.prewarmer = getattr(cache, "prewarmer", None)
         self.sharded_byte_budget = getattr(cache, "sharded_byte_budget", 0)
         # the allocate action's dispatch/collect overlap (False = strictly
         # serial solve for parity testing)

@@ -215,6 +215,23 @@ queue_weight = registry.register(Gauge(
 queue_overused = registry.register(Gauge(
     "volcano_queue_overused", "Whether queue is overused", ["queue_name"]))
 
+# -- compile pipeline (ops.precompile): kernel builds and cold first solves -
+
+solver_compile_total = registry.register(Counter(
+    "volcano_solver_compile_total",
+    "Kernel builds and cold first solves at a new (layout, flags) key, "
+    "by observing thread class", ["thread"]))
+solver_compile_seconds_total = registry.register(Counter(
+    "volcano_solver_compile_seconds_total",
+    "Seconds spent in kernel builds and cold first solves, by thread "
+    "class", ["thread"]))
+compile_cache_hits_total = registry.register(Counter(
+    "volcano_compile_cache_hits_total",
+    "Kernel builds served by a library already in the build directory"))
+prewarm_completions_total = registry.register(Counter(
+    "volcano_prewarm_completions_total",
+    "Background bucket pre-warm completions"))
+
 # -- cycle phase latency (scheduler._export_pipeline_metrics) -------------
 
 session_phase_ms = registry.register(Gauge(
@@ -347,6 +364,13 @@ fenced_writes_total = registry.register(Counter(
     "volcano_fenced_writes_total",
     "Mutating store writes rejected by lease fencing (split-brain "
     "attempts made visible)", ["holder"]))
+bind_intents_total = registry.register(Counter(
+    "volcano_bind_intents_total",
+    "Bind-intent journal activity (recorded / confirmed)", ["event"]))
+recovery_intents_total = registry.register(Counter(
+    "volcano_recovery_intents_total",
+    "Bind-intent bindings reconciled at leadership takeover, by outcome "
+    "(adopted / redriven / conflict / lost)", ["outcome"]))
 
 # -- global rescheduler metrics (reschedule/) -------------------------------
 

@@ -28,6 +28,8 @@ Semantics (shared by both versions):
 from __future__ import annotations
 
 import ctypes
+import threading
+from contextlib import contextmanager
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -187,10 +189,31 @@ def _launch(init_req, avail, used_now, inv_alloc, node_static, eligible,
     if err != 0:
         raise RuntimeError(f"fused_choice kernel launch failed: CUDA error "
                            f"{err}")
-    fused_choice.launches += 1
-    if prefilter:
-        fused_choice.launches_hdrf_prefilter += 1
+    if getattr(_thread, "prewarm", False):
+        with _prewarm_lock:
+            fused_choice.launches_prewarm += 1
+    else:
+        fused_choice.launches += 1
+        if prefilter:
+            fused_choice.launches_hdrf_prefilter += 1
     return best_s, best_i, node_max
+
+
+_thread = threading.local()
+_prewarm_lock = threading.Lock()
+
+
+@contextmanager
+def counted_as_prewarm():
+    """Kernel launches made on this thread inside the block count in
+    ``fused_choice.launches_prewarm`` and not in ``launches``: the
+    prewarmer's background solves never mix into a cycle's count."""
+    prev = getattr(_thread, "prewarm", False)
+    _thread.prewarm = True
+    try:
+        yield
+    finally:
+        _thread.prewarm = prev
 
 
 def fused_choice(init_req, avail, used_now, inv_alloc, node_static,
@@ -205,7 +228,8 @@ def fused_choice(init_req, avail, used_now, inv_alloc, node_static,
     node_max [N] f32). CPU tensors take the plain version; CUDA tensors
     launch the kernel (``fused_choice.launches`` counts those launches;
     ``prefilter``: the call is the hdrf placeability prefilter's, counted
-    apart as well in ``fused_choice.launches_hdrf_prefilter``)."""
+    apart as well in ``fused_choice.launches_hdrf_prefilter``; launches
+    inside ``counted_as_prewarm`` count in ``launches_prewarm`` only)."""
     dev = init_req.device
     if dev.type == "cpu":
         return fused_choice_plain(init_req, avail, used_now, inv_alloc,
@@ -222,6 +246,8 @@ def fused_choice(init_req, avail, used_now, inv_alloc, node_static,
 fused_choice.launches = 0
 #: those of them made by the hdrf placeability prefilter
 fused_choice.launches_hdrf_prefilter = 0
+#: launches of the bucket prewarmer's background solves (not in launches)
+fused_choice.launches_prewarm = 0
 
 
 #: H100 SXM data sheet: HBM3 bandwidth

@@ -1080,11 +1080,19 @@ def solve_allocate_packed2d(f2d, i2d, layout, score_params,
                             fused: str = "auto") -> SolveResult:
     """solve_allocate over the chunked device-resident buffers kept by
     ops.device_cache.PackedDeviceCache (``[C, chunk]`` tensors); runs on
-    their device."""
+    their device. The first solve at a (layout, flags, device) key in the
+    process counts as one compile in ``ops.precompile.watcher``."""
+    from .precompile import solve_key, watcher
+
     fbuf = f2d.reshape(-1)[:_packed_len(layout, True)]
     ibuf = i2d.reshape(-1)[:_packed_len(layout, False)]
-    return solve_allocate(_unpack(fbuf, ibuf, layout), score_params,
-                          max_rounds, max_gang_iters, per_node_cap,
-                          herd_mode, score_families, use_queue_cap,
-                          use_drf_order, use_hdrf_order, work_conserving,
-                          fused, device=f2d.device)
+    key = solve_key("packed2d", (f2d.device,), layout, dict(
+        herd_mode=herd_mode, score_families=tuple(score_families),
+        use_queue_cap=use_queue_cap, use_drf_order=use_drf_order,
+        use_hdrf_order=use_hdrf_order, work_conserving=work_conserving))
+    with watcher.first_solve(key):
+        return solve_allocate(_unpack(fbuf, ibuf, layout), score_params,
+                              max_rounds, max_gang_iters, per_node_cap,
+                              herd_mode, score_families, use_queue_cap,
+                              use_drf_order, use_hdrf_order,
+                              work_conserving, fused, device=f2d.device)

@@ -382,7 +382,30 @@ def solve_allocate_sharded_arena(f_rep, i_rep, f_node, i_node, rep_layout,
     columns excepted): the node arrays are never re-assembled, and each
     shard's sig_masks is read straight from its [S, N/D] slab.
     ``score_params``: ``ShardedDeviceCache.params_device``'s per-shard
-    list, or one whole-problem dict."""
+    list, or one whole-problem dict. The first solve at a (layouts,
+    flags, mesh) key in the process counts as one compile in
+    ``ops.precompile.watcher``."""
+    from ..ops.precompile import solve_key, watcher
+
+    key = solve_key("sharded_arena", mesh.devices,
+                    tuple(rep_layout) + tuple(node_layout), dict(
+                        herd_mode=herd_mode,
+                        score_families=tuple(score_families),
+                        use_queue_cap=use_queue_cap,
+                        use_drf_order=use_drf_order,
+                        use_hdrf_order=use_hdrf_order))
+    with watcher.first_solve(key):
+        return _solve_arena(f_rep, i_rep, f_node, i_node, rep_layout,
+                            node_layout, score_params, mesh, max_rounds,
+                            max_gang_iters, herd_mode, score_families,
+                            use_queue_cap, use_drf_order, use_hdrf_order,
+                            fused)
+
+
+def _solve_arena(f_rep, i_rep, f_node, i_node, rep_layout, node_layout,
+                 score_params, mesh, max_rounds, max_gang_iters, herd_mode,
+                 score_families, use_queue_cap, use_drf_order,
+                 use_hdrf_order, fused) -> SolveResult:
     views: dict = {}
     reps = []
     for fr, ir in zip(f_rep, i_rep):

@@ -17,8 +17,8 @@ Abandon-don't-redrive means a crash can only under-migrate, never
 double-evict, and the bind side of every migration (the replacement
 pod's placement) rides the allocate path's own bind-intent journal.
 ``reconcile_migration_intents`` is the pass a new leader runs before its
-first cycle; the leader election that calls it is not part of this
-package yet (ROADMAP A12).
+first cycle (Scheduler.run_with_leader_election calls it right after
+resilience.reconcile_bind_intents).
 """
 
 from __future__ import annotations

@@ -50,7 +50,12 @@ pass; there is no host solve), and ``migration_commit``
 (reschedule/action.py, per migration wave, after the wave's
 migration-intent write and before its evictions dispatch — ``at:1``
 fails with the first wave journaled but zero evictions applied, ``at:2``
-with wave one fully evicted and wave two only journaled).
+with wave one fully evicted and wave two only journaled), and
+``sidecar_solve`` (parallel/sidecar.py's server, after the arena's scatter
+and before the solve — the server answers with an error frame; a client
+of a CUDA server raises, a client of a CPU server falls back to the host
+loop), and ``lease_renew`` (utils/leader_election.py, between deciding to
+renew and committing the renewal).
 """
 
 from __future__ import annotations

@@ -64,10 +64,6 @@ class Scheduler:
                  reschedule_max_moves: Optional[int] = None,
                  reschedule_max_disruption: Optional[int] = None,
                  reschedule_min_improvement: Optional[float] = None):
-        if compile_cache_dir or prewarm:
-            raise NotImplementedError(
-                "compile_cache_dir / prewarm need the precompile pipeline, "
-                "which is not ported yet (ROADMAP A10)")
         if solver_mode not in (None, "packed", "sharded", "auto"):
             raise ValueError(f"solver_mode must be None, 'packed', "
                              f"'sharded' or 'auto': {solver_mode!r}")
@@ -107,9 +103,20 @@ class Scheduler:
             cache.solver_mode = solver_mode
         if sharded_byte_budget:
             cache.sharded_byte_budget = int(sharded_byte_budget)
-        # the allocate action's dispatch/collect overlap; decisions are
-        # identical with it on or off
+        # compile-and-dispatch pipeline (ops.precompile): the kernel build
+        # directory (explicit dir or $VOLCANO_COMPILE_CACHE_DIR), the
+        # background next-bucket pre-warm, and the allocate action's
+        # dispatch/collect overlap. All three are pure-latency features —
+        # decisions are identical with them on or off
+        from .ops import precompile as _pc
+        self.compile_cache_dir = _pc.configure_compilation_cache(
+            compile_cache_dir)
         cache.pipeline_solver = bool(pipeline_solver)
+        if prewarm and getattr(cache, "prewarmer", None) is None:
+            cache.prewarmer = _pc.BucketPrewarmer()
+        if prewarm or self.compile_cache_dir:
+            _pc.watcher.install()
+        self._compile_totals = _pc.watcher.session_totals()
         # reschedule_* deployment flags: a positive interval opts the
         # global rescheduler in without a conf edit (load_conf appends the
         # action when the conf's actions string doesn't name it); the
@@ -375,12 +382,212 @@ class Scheduler:
                 for d, b in enumerate(dc.last_shard_bytes):
                     metrics.arena_shard_bytes_shipped.set(
                         b, labels={"shard": str(d)})
+        # the cycle's compile accounting (ops.precompile): kernel builds
+        # and cold first solves on the session thread since the last cycle
+        from .ops.precompile import watcher
+        c, secs = watcher.session_totals()
+        prev_c, prev_s = self._compile_totals
+        self._compile_totals = (c, secs)
+        timing["session_compiles"] = float(c - prev_c)
+        timing["session_compile_s"] = secs - prev_s
+        timing["compile_cache_hits"] = float(watcher.cache_hits)
+        pw = getattr(self.cache, "prewarmer", None)
+        if pw is not None:
+            timing["prewarm_completions"] = float(pw.completions)
         br = getattr(self.cache, "breaker", None)
         if br is not None:
             # the degradation ladder made observable per cycle: 0=closed
             # (device path live), 1=half-open probe, 2=open (host oracle)
             timing["breaker_state"] = float(br.state_code)
             timing["breaker_fallback_cycles"] = float(br.fallback_cycles)
+
+    def shadow_cycle(self) -> None:
+        """One write-free scheduling cycle against the live mirror: the
+        warm-standby trick. The full session pipeline — snapshot, flatten,
+        solve, replay — runs with every effector swapped for a fake, so
+        the standby's kernel library, flatten/order caches, device arena
+        and first-solve keys are exactly as hot as the leader's, and the
+        first post-takeover cycle neither re-ships its arena nor flattens
+        cold. Afterwards every mirror mutation the fake-committed
+        binds/evicts made is resynced from store truth, and podgroups are
+        re-read, so the mirror is as before the shadow ran."""
+        import copy
+
+        from .cache.fakes import (
+            FakeBinder, FakeEvictor, FakeStatusUpdater, FakeVolumeBinder,
+        )
+
+        cache = self.cache
+        saved = (cache.binder, cache.evictor, cache.status_updater,
+                 cache.volume_binder, cache.bind_journal,
+                 getattr(cache, "decision_recorder", None))
+        shadow_binder, shadow_evictor = FakeBinder(), FakeEvictor()
+        cache.binder, cache.evictor = shadow_binder, shadow_evictor
+        cache.status_updater = FakeStatusUpdater()
+        cache.volume_binder = FakeVolumeBinder()
+        cache.bind_journal = None
+        cache.decision_recorder = None
+        # JobInfo clones SHARE the pod_group object with the mirror (and,
+        # in-process, with the store): give each job a private copy so
+        # the shadow session's phase flips/conditions can't leak out.
+        # Under the store lock: watch deliveries mutate cache.jobs
+        # concurrently.
+        with cache.cluster.locked():
+            for job in list(cache.jobs.values()):
+                if job.pod_group is not None:
+                    job.set_pod_group(copy.deepcopy(job.pod_group))
+        try:
+            self.load_conf()
+            ssn = open_session(self.cache, self.tiers, self.configurations)
+            ssn.node_sampler = self.node_sampler
+            try:
+                for epoch, action in enumerate(self.actions):
+                    ssn._action_epoch = epoch
+                    try:
+                        self._execute_action(ssn, action)
+                    except Exception:
+                        ssn.discard_open_statements()
+                        log.exception("shadow cycle action %s failed "
+                                      "(contained)", action.name())
+            finally:
+                close_session(ssn)
+        except Exception:
+            log.exception("shadow cycle failed")
+        finally:
+            # drain BEFORE restoring: an async bind effect reads
+            # cache.binder at run time, and must still see the fake
+            try:
+                cache.wait_for_effects()
+            except Exception:  # noqa: BLE001
+                log.exception("shadow cycle effect drain failed")
+            (cache.binder, cache.evictor, cache.status_updater,
+             cache.volume_binder, cache.bind_journal,
+             cache.decision_recorder) = saved
+            # undo the fake-committed mirror mutations from store truth;
+            # resync the STORED task (its node_name reflects the fake
+            # bind) so the node-side accounting unwinds too
+            from .api import TaskInfo
+            for pod in list(shadow_binder.bound_pods) \
+                    + list(shadow_evictor.evicted_pods):
+                ti = TaskInfo(pod)
+                cache.resync_task(cache._stored_task(ti) or ti)
+            cache.process_resync_tasks()
+            try:
+                for pg in cache.cluster.list("podgroups"):
+                    cache.set_pod_group(pg)
+            except Exception:  # noqa: BLE001 — store briefly away: mirror
+                log.exception("shadow cycle podgroup refresh failed")
+            # re-baseline the compile accounting: first solves during the
+            # shadow belong to the standby era, so the first REAL
+            # post-takeover cycle reports session_compiles == 0 when the
+            # warm-up did its job
+            from .ops.precompile import watcher
+            self._compile_totals = watcher.session_totals()
+
+    def run_with_leader_election(self, stop, lock_name: str = "volcano",
+                                 identity: Optional[str] = None,
+                                 lease_duration: Optional[float] = None,
+                                 renew_deadline: Optional[float] = None,
+                                 retry_period: Optional[float] = None,
+                                 warm_standby: bool = True) -> None:
+        """HA mode (cmd/scheduler/app/server.go:85-145): only the lease
+        holder schedules; standbys poll the lease and take over on expiry.
+        The lease timings are overridable (tests shrink them to fail over
+        in seconds; the defaults match the reference's 15/10/5).
+
+        Crash-safe failover ladder:
+
+        - **fencing** — every effector write carries this elector's lease
+          token (cache.install_fencing); a deposed leader's late commit
+          is a FencedError, not a split-brain bind;
+        - **bind-intent journal** — the leader journals each decided bind
+          wave before dispatching it (resilience/recovery.py), and sweeps
+          confirmed intents once per cycle;
+        - **recovery** — at every leadership acquisition the surviving
+          intents reconcile against pod truth (adopt / re-drive), then the
+          migration intents (reschedule/intent.py), BEFORE the first cycle;
+        - **warm standby** — the mirror subscribes immediately (not at
+          first leadership) and, with ``warm_standby``, the standby runs
+          write-free shadow cycles so takeover starts with a warm arena,
+          flatten and first-solve keys;
+        - **drain-then-release** — on stop, the lease is released only
+          after the async bind effectors drained.
+
+        Lease renewal runs on its own thread at the elector's retry period
+        (like client-go's renew loop), so a long scheduling cycle or a long
+        schedule-period can't blow the renew deadline."""
+        import threading
+
+        from .reschedule import reconcile_migration_intents
+        from .resilience.recovery import (
+            BindIntentJournal, reconcile_bind_intents,
+        )
+        from .utils import (
+            LEASE_DURATION, RENEW_DEADLINE, RETRY_PERIOD, LeaderElector,
+            LeaseLock,
+        )
+
+        store = self.cache.cluster
+        elector = LeaderElector(
+            LeaseLock(store, lock_name), identity=identity,
+            lease_duration=lease_duration or LEASE_DURATION,
+            renew_deadline=renew_deadline or RENEW_DEADLINE,
+            retry_period=retry_period or RETRY_PERIOD)
+        self._elector = elector
+        self.cache.install_fencing(elector.fencing_token)
+        journal = BindIntentJournal(self.cache.fenced_cluster,
+                                    identity=elector.identity)
+        renewer = threading.Thread(target=elector.run,
+                                   args=(stop,), kwargs={
+                                       "release_on_stop": False},
+                                   name="leader-elector", daemon=True)
+        renewer.start()
+        # warm standby: the mirror subscribes NOW, leader or not
+        self.cache.run()
+        self.cache.wait_for_cache_sync()
+        was_leader = False
+        last_shadow = 0.0
+        while not stop.is_set():
+            if elector.is_leader:
+                if not was_leader:
+                    # takeover: settle the dead leader's journaled binds
+                    # before scheduling anything, then settle-or-abandon
+                    # its in-flight migration waves (reschedule/intent.py:
+                    # swallowed evictions are ABANDONED, never re-driven)
+                    try:
+                        reconcile_bind_intents(store, elector.fencing_token)
+                        reconcile_migration_intents(store,
+                                                    elector.fencing_token)
+                    except Exception:
+                        log.exception("bind/migration-intent recovery "
+                                      "failed; retrying before the first "
+                                      "cycle")
+                        stop.wait(0.05)
+                        continue
+                    self.cache.bind_journal = journal
+                    was_leader = True
+                self.cache.process_resync_tasks()
+                try:
+                    self.run_once()
+                except Exception:
+                    log.exception("scheduling cycle failed")
+                journal.sweep()
+                self._maybe_gc()
+                stop.wait(self.period)
+            else:
+                if was_leader:
+                    was_leader = False
+                    self.cache.bind_journal = None
+                if warm_standby \
+                        and time.time() - last_shadow >= self.period:
+                    self.shadow_cycle()
+                    last_shadow = time.time()
+                stop.wait(0.05)
+        # SIGTERM contract: land the in-flight binds, then hand the lease
+        # over — the standby must not take over around live writes
+        self.cache.wait_for_effects()
+        elector.release()
+        renewer.join(timeout=2 * elector.retry_period)
 
     def run(self, stop_after: Optional[int] = None) -> None:
         """Run the periodic loop; stop_after bounds cycles for tests.
