@@ -152,7 +152,31 @@ checkout, then, printing one JSON line per phase:
              cold flatten) that launches the kernel (every launch held
              against the plain version). Takeover latency, B's first
              cycle beside C's;
-17. the kernels line, then the result line.
+17. lifecycle - vcjobs (batch.volcano.sh Jobs) from admission to
+             podgroup, pods and binds through the port's webhooks
+             (start_webhooks), ControllerManager (job, queue and podgroup
+             controllers, the kubelet stand-in, the garbage collector)
+             and Scheduler on the card, at the cycle cell's scale: 2000
+             nodes of 32 cpu / 128Gi, three queues 1:2:3 created through
+             the queue admission, the default conf. A burst of 1000
+             vcjobs of one 10-replica task (minAvailable 10, cpu
+             1 + (k // 3) % 3, 1-4Gi; PodFailed -> RestartJob,
+             TaskCompleted -> CompleteJob, ttlSecondsAfterFinished 0; the
+             svc and env plugins on every tenth), converged as the
+             reference e2e World does (controllers, the kubelet, one
+             cycle, up to 6 rounds) with every kernel launch held against
+             the plain version; then 12 waves: 10 jobs complete and are
+             collected, one pod of each of 2 jobs fails and they restart,
+             one job gets AbortJob (ResumeJob the wave after), 10 new
+             jobs arrive. Checks after each: every job's phase and retry
+             count as its policy or command implies, every pod bound at
+             most once, no node over its allocatable, a Running job with
+             minAvailable pods bound, nothing of a collected job left,
+             every binding cycle launched the kernel. Then the twin: the
+             same script at 200 nodes, 100 jobs and 4 waves on the card
+             and on the host (device="cpu"), binds, job, podgroup and
+             queue states identical wave by wave;
+18. the kernels line, then the result line.
 
 `--phases kernel,edges` runs a subset (device and build always run) and
 then prints neither of the last two lines.
@@ -3022,9 +3046,407 @@ def phase_failover(dev, scale=None) -> dict:
     return out
 
 
+LIFECYCLE = dict(n_nodes=CYCLE["n_nodes"], n_jobs=CYCLE["n_jobs"],
+                 tasks_per_job=10, waves=12, complete=10, fail=2,
+                 wave_jobs=10, plugin_every=10, max_rounds=6)
+#: the card/host twin: the same script, cut to this size
+LIFECYCLE_TWIN = dict(n_nodes=200, n_jobs=100, waves=4)
+
+
+class LifecycleWorld:
+    """A vcjob's whole path through the port, in one process over one
+    in-memory store: admission (``start_webhooks``), the
+    ControllerManager (the job, queue and podgroup controllers, the
+    kubelet stand-in, the garbage collector) and the Scheduler on ``dev``
+    with the cache's DefaultBinder (a bound pod goes Running), wrapped to
+    record every bind by pod uid. ``n_nodes`` nodes of 32 cpu / 128Gi /
+    110 pods, three queues weighted 1:2:3 created through the queue
+    admission, the default conf.
+
+    Job k (``submit``) has one task of ``tasks_per_job`` replicas,
+    minAvailable = replicas, cpu ``1 + (k // 3) % 3`` and memory
+    ``1 + k % 4`` Gi, queue ``k % 3``, job-level PodFailed -> RestartJob
+    and TaskCompleted -> CompleteJob, ttlSecondsAfterFinished 0, and the
+    svc and env plugins when ``k % plugin_every == 0``. ``expect`` holds
+    each job's phase (a str, or None once collected) and retry count
+    as the policies and commands imply them."""
+
+    NS = "bench"
+
+    def __init__(self, dev, sc):
+        from volcano_tpu_torch.cache import SchedulerCache
+        from volcano_tpu_torch.cache.cache import DefaultBinder
+        from volcano_tpu_torch.cache.fakes import RecordingBinder
+        from volcano_tpu_torch.client import ClusterStore
+        from volcano_tpu_torch.controllers import (
+            ControllerManager, KubeletStandin,
+        )
+        from volcano_tpu_torch.models import Node, Queue, QueueSpec
+        from volcano_tpu_torch.scheduler import Scheduler
+        from volcano_tpu_torch.webhooks import start_webhooks
+
+        self.sc = sc
+        self.tpj = sc["tasks_per_job"]
+        self.store = ClusterStore()
+        start_webhooks(self.store)
+        self.cm = ControllerManager(self.store)
+        self.cm.run()
+        # the kubelet finishes a graceful termination at once, as the
+        # reference e2e World's kubelet does
+        self.kubelet = next(c for c in self.cm.controllers
+                            if isinstance(c, KubeletStandin))
+        self.kubelet.grace_seconds = 0.0
+        self.cache = SchedulerCache(self.store, device=dev)
+        self.on_card = self.cache.device.type == "cuda"
+        self.bound: dict = {}     # pod uid -> node
+        self.rebound: list = []   # pods bound a second time
+        self.cache.binder = RecordingBinder(DefaultBinder(self.store),
+                                            on_bind=self._on_bind)
+        self.cache.run()
+        self.queues = ["q0", "q1", "q2"]
+        for i, name in enumerate(self.queues):
+            self.store.create("queues", Queue(name=name,
+                                              spec=QueueSpec(weight=i + 1)))
+        self.alloc = {"cpu": 32.0, "memory": 128 * 2.0 ** 30, "pods": 110}
+        rl = {"cpu": "32", "memory": "128Gi", "pods": "110"}
+        for i in range(sc["n_nodes"]):
+            self.store.create("nodes", Node(name=f"n{i}", allocatable=rl,
+                                            capacity=dict(rl)))
+        self.sched = Scheduler(self.cache)
+        self.k = 0
+        self.req: dict = {}     # job name -> (cpu, memory bytes) a pod
+        self.expect: dict = {}  # job name -> (phase or None, retry count)
+        self.fresh: list = []   # Running jobs no wave has touched yet
+        self.aborted = None
+        self.cycles: list = []
+
+    def _on_bind(self, pod, hostname) -> None:
+        if pod.uid in self.bound:
+            self.rebound.append(f"{pod.namespace}/{pod.name}")
+        self.bound[pod.uid] = hostname
+
+    def submit(self, n: int) -> list:
+        from volcano_tpu_torch.models import (
+            Action, Event, Job, JobSpec, LifecyclePolicy, TaskSpec,
+        )
+        names = []
+        for _ in range(n):
+            k = self.k
+            self.k += 1
+            cpu, mem = 1 + (k // 3) % 3, 1 + k % 4
+            name = f"vj{k}"
+            plugins = ({"svc": [], "env": []}
+                       if k % self.sc["plugin_every"] == 0 else {})
+            self.store.create("jobs", Job(
+                name=name, namespace=self.NS, spec=JobSpec(
+                    min_available=self.tpj, queue=self.queues[k % 3],
+                    tasks=[TaskSpec(name="worker", replicas=self.tpj,
+                                    template={"spec": {"containers": [{
+                                        "name": "c", "requests": {
+                                            "cpu": str(cpu),
+                                            "memory": f"{mem}Gi"}}]}})],
+                    policies=[
+                        LifecyclePolicy(event=Event.POD_FAILED,
+                                        action=Action.RESTART_JOB),
+                        LifecyclePolicy(event=Event.TASK_COMPLETED,
+                                        action=Action.COMPLETE_JOB)],
+                    plugins=plugins, ttl_seconds_after_finished=0)))
+            self.req[name] = (float(cpu), mem * 2.0 ** 30)
+            self.expect[name] = ("Running", 0)
+            names.append(name)
+        return names
+
+    def job_pods(self, name: str) -> list:
+        return [p for p in self.store.list("pods", namespace=self.NS)
+                if p.annotations.get("volcano.sh/job-name") == name]
+
+    def cycle(self) -> dict:
+        """One Scheduler.run_once with the kernel's count set to 0 just
+        before and read just after."""
+        from volcano_tpu_torch.ops import fused_choice as fc
+        before = len(self.bound) + len(self.rebound)
+        fc.fused_choice.launches = 0
+        t0 = time.perf_counter()
+        self.sched.run_once()
+        ms = (time.perf_counter() - t0) * 1e3
+        t = self.sched.last_cycle_timing
+        row = {"cycle_ms": ms, "launches": fc.fused_choice.launches,
+               "binds": len(self.bound) + len(self.rebound) - before,
+               **{k: t[k] for k in ("flatten_mode", "dispatch_ms",
+                                    "allocate_error", "host_fallback")
+                  if k in t}}
+        if row.get("allocate_error") or row.get("host_fallback"):
+            raise AssertionError(f"a lifecycle cycle left the device "
+                                 f"path: {row}")
+        self.cycles.append(row)
+        return row
+
+    def reached(self, names=None) -> bool:
+        """Every job (of ``names``) in its expected phase and retry count,
+        every collected one gone."""
+        jobs = {j.name: j for j in self.store.list("jobs",
+                                                   namespace=self.NS)}
+        for name in (names if names is not None else self.expect):
+            phase, retries = self.expect[name]
+            j = jobs.get(name)
+            if phase is None:
+                if j is not None:
+                    return False
+            elif j is None or j.status.state.phase.value != phase \
+                    or j.status.retry_count != retries:
+                return False
+        return True
+
+    def converge(self, new=()) -> dict:
+        """Rounds of controllers, the kubelet, then one cycle, as the
+        reference e2e World's converge, until every job is where
+        ``expect`` says or ``max_rounds`` cycles have run (then one more
+        controllers pass). Per round: the controllers' drain ms and the
+        cycle's row; the ms until the jobs ``new`` run."""
+        t0 = time.perf_counter()
+        rounds, new_ms = [], None
+        for r in range(self.sc["max_rounds"] + 1):
+            t1 = time.perf_counter()
+            self.cm.process_all()
+            ctrl_ms = (time.perf_counter() - t1) * 1e3
+            if new_ms is None and new and self.reached(new):
+                new_ms = (time.perf_counter() - t0) * 1e3
+            if self.reached() or r == self.sc["max_rounds"]:
+                rounds.append({"controllers_ms": ctrl_ms})
+                break
+            self.kubelet.process_all()
+            rounds.append({"controllers_ms": ctrl_ms, **self.cycle()})
+        return {"rounds": len(rounds), "ms": (time.perf_counter() - t0) * 1e3,
+                "new_jobs_running_ms": new_ms,
+                "controllers_ms": [r["controllers_ms"] for r in rounds],
+                "cycle_ms": [r["cycle_ms"] for r in rounds if "cycle_ms" in r],
+                "binds": [r["binds"] for r in rounds if "binds" in r],
+                "launches": [r["launches"] for r in rounds
+                             if "launches" in r]}
+
+    def wave(self) -> dict:
+        """The pods of ``complete`` Running jobs succeed (CompleteJob, then
+        the collector), one pod of each of ``fail`` others fails
+        (RestartJob), last wave's aborted job gets ResumeJob and one more
+        gets AbortJob, and ``wave_jobs`` new jobs arrive."""
+        from volcano_tpu_torch.models import Action, Command
+        sc = self.sc
+        done = self.fresh[:sc["complete"]]
+        failed = self.fresh[sc["complete"]:sc["complete"] + sc["fail"]]
+        abort = self.fresh[sc["complete"] + sc["fail"]]
+        del self.fresh[:sc["complete"] + sc["fail"] + 1]
+        for name in done:
+            for p in self.job_pods(name):
+                p.phase = "Succeeded"
+                self.store.update("pods", p)
+            self.expect[name] = (None, 0)
+        for name in failed:
+            p = min(self.job_pods(name), key=lambda p: p.name)
+            p.phase = "Failed"
+            p.container_statuses = [
+                {"name": "c", "state": {"terminated": {"exitCode": 1}}}]
+            self.store.update("pods", p)
+            self.expect[name] = ("Running", 1)
+        for name, action in ((self.aborted, Action.RESUME_JOB),
+                             (abort, Action.ABORT_JOB)):
+            if name is None:
+                continue
+            self.store.create("commands", Command(
+                name=f"{action.value.lower()}-{name}", namespace=self.NS,
+                action=action, target_object={"kind": "Job", "name": name}))
+        if self.aborted is not None:
+            self.expect[self.aborted] = ("Running", 1)
+        self.expect[abort] = ("Aborted", 0)
+        self.aborted = abort
+        new = self.submit(sc["wave_jobs"])
+        self.fresh += new
+        return {"completed": done, "restarted": failed, "aborted": abort,
+                "new": new}
+
+    def check(self, what: str) -> None:
+        """Phases and retries as ``expect`` says; every pod bound at most
+        once; no node over its allocatable; a Running job with at least
+        minAvailable pods bound; nothing of a collected job left; on the
+        card, every cycle that bound a pod launched the kernel."""
+        if not self.reached():
+            jobs = {j.name: (j.status.state.phase.value, j.status.retry_count)
+                    for j in self.store.list("jobs", namespace=self.NS)}
+            wrong = {n: (e, jobs.get(n)) for n, e in self.expect.items()
+                     if (jobs.get(n) or (None, 0)) != e}
+            raise AssertionError(f"{what}: {len(wrong)} jobs off their "
+                                 f"expected phase: "
+                                 f"{dict(list(wrong.items())[:5])}")
+        if self.rebound:
+            raise AssertionError(f"{what}: pods bound twice: "
+                                 f"{self.rebound[:5]}")
+        load: dict = {}
+        bound_of: dict = {}
+        for p in self.store.list("pods", namespace=self.NS):
+            job = p.annotations.get("volcano.sh/job-name")
+            if self.expect.get(job, (None,))[0] is None:
+                raise AssertionError(f"{what}: pod {p.name} of collected "
+                                     f"job {job} remains")
+            if not p.node_name or p.phase in ("Succeeded", "Failed"):
+                continue
+            if self.bound.get(p.uid) != p.node_name:
+                raise AssertionError(f"{what}: pod {p.name} on "
+                                     f"{p.node_name} without a bind")
+            c, m = self.req[job]
+            lc, lm, n = load.get(p.node_name, (0.0, 0.0, 0))
+            load[p.node_name] = (lc + c, lm + m, n + 1)
+            if p.phase == "Running":
+                bound_of[job] = bound_of.get(job, 0) + 1
+        a = self.alloc
+        over = [n for n, (c, m, k) in load.items()
+                if c > a["cpu"] or m > a["memory"] or k > a["pods"]]
+        if over:
+            raise AssertionError(f"{what}: nodes over allocatable: "
+                                 f"{over[:5]}")
+        short = [n for n, (ph, _) in self.expect.items()
+                 if ph == "Running" and bound_of.get(n, 0) < self.tpj]
+        if short:
+            raise AssertionError(f"{what}: Running jobs with fewer than "
+                                 f"minAvailable pods bound: {short[:5]}")
+        gone = {n for n, (ph, _) in self.expect.items() if ph is None}
+        for kind in ("podgroups", "configmaps", "services",
+                     "networkpolicies"):
+            left = [o.name for o in self.store.list(kind, namespace=self.NS)
+                    if o.name.removesuffix("-svc") in gone]
+            if left:
+                raise AssertionError(f"{what}: {kind} of collected jobs "
+                                     f"remain: {left[:5]}")
+        idle = [r for r in self.cycles
+                if self.on_card and r["binds"] and r["launches"] <= 0]
+        if idle:
+            raise AssertionError(f"{what}: a cycle bound pods without a "
+                                 f"kernel launch: {idle[0]}")
+
+    def record(self) -> dict:
+        """The decisions, by name, for the card/host twin."""
+        ns = self.NS
+        return {
+            "binds": sorted((p.name, p.node_name, p.phase)
+                            for p in self.store.list("pods", namespace=ns)),
+            "jobs": sorted((j.name, j.status.state.phase.value,
+                            j.status.retry_count, j.status.version)
+                           for j in self.store.list("jobs", namespace=ns)),
+            "podgroups": sorted((pg.name, pg.status.phase.value)
+                                for pg in self.store.list("podgroups",
+                                                          namespace=ns)),
+            "queues": sorted((q.name, q.status.state.value, q.status.pending,
+                              q.status.running, q.status.inqueue,
+                              q.status.unknown)
+                             for q in self.store.list("queues"))}
+
+
+def lifecycle_run(dev, sc, audit: bool = False, on_wave=None) -> dict:
+    """The burst then the waves through one LifecycleWorld, checked after
+    every convergence; ``audit`` holds every kernel launch of the burst
+    against the plain version; ``on_wave(i, world)`` runs after the burst
+    (i = -1) and after each wave."""
+    w = LifecycleWorld(dev, sc)
+    t0 = time.perf_counter()
+    jobs = w.submit(sc["n_jobs"])
+    submit_ms = (time.perf_counter() - t0) * 1e3
+    if audit:
+        with KernelAudit() as kaudit:
+            burst = w.converge(new=jobs)
+    else:
+        burst = w.converge(new=jobs)
+    burst["running_ms"] = (time.perf_counter() - t0) * 1e3
+    w.check("burst")
+    w.fresh = list(jobs)
+    pods = w.store.list("pods")
+    out = {"burst": {"nodes": sc["n_nodes"], "jobs": len(jobs),
+                     "submit_ms": submit_ms, **burst,
+                     "pods_created": len(pods),
+                     "podgroups_created": len(w.store.list("podgroups")),
+                     "plugin_jobs": len(w.store.list("services"))},
+           "waves": []}
+    if audit:
+        out["burst"]["audit"] = kaudit.summary()
+        if kaudit.summary()["launches_checked"] != sum(burst["launches"]):
+            raise AssertionError("lifecycle burst: a launch escaped the "
+                                 "audit")
+    if on_wave:
+        on_wave(-1, w)
+    for i in range(sc["waves"]):
+        moved = w.wave()
+        row = w.converge(new=moved["new"])
+        w.check(f"wave {i}")
+        out["waves"].append({"wave": i, **row})
+        if on_wave:
+            on_wave(i, w)
+    out["world"] = w
+    out["launches"] = sum(r["launches"] for r in w.cycles)
+    return out
+
+
+def lifecycle_twin(dev, scale=None) -> dict:
+    """The lifecycle script at LIFECYCLE_TWIN's size, on ``dev`` and on
+    the host (``device="cpu"``, the plain path): binds, job phases,
+    podgroup phases and queue status counts identical after the burst and
+    after every wave."""
+    sc = {**LIFECYCLE, **LIFECYCLE_TWIN, **(scale or {})}
+    runs = []
+    for where in (dev, "cpu"):
+        records = []
+        run = lifecycle_run(where, sc,
+                            on_wave=lambda i, w: records.append(w.record()))
+        runs.append((records, run["launches"]))
+    (card, launches), (host, _) = runs
+    for i, (a, b) in enumerate(zip(card, host)):
+        for key in a:
+            if a[key] != b[key]:
+                raise AssertionError(f"lifecycle twin, "
+                                     f"{'burst' if i == 0 else f'wave {i - 1}'}"
+                                     f": {key} differ between card and host")
+    if len(card) != len(host) or launches <= 0:
+        raise AssertionError("lifecycle twin: the card run launched no "
+                             "kernel or the runs differ in length")
+    return {"nodes": sc["n_nodes"], "jobs": sc["n_jobs"],
+            "waves": sc["waves"], "launches": launches,
+            "pods_at_end": len(card[-1]["binds"]),
+            "identical_to_host": True}
+
+
+def phase_lifecycle(dev, scale=None) -> dict:
+    """vcjobs from admission to podgroup, pods and binds on the card at
+    the cycle cell's scale: the burst of ``n_jobs`` vcjobs, then the
+    waves (jobs completing and collected, pods failing and jobs
+    restarting, AbortJob then ResumeJob, new jobs); then the twin."""
+    sc = dict(LIFECYCLE, **(scale or {}))
+    res = lifecycle_run(dev, sc, audit=True)
+    w = res.pop("world")
+    emit({"phase": "lifecycle", "regime": "burst", **res["burst"]})
+    for row in res["waves"]:
+        emit({"phase": "lifecycle", "regime": "wave", **row})
+    restarted = [n for n, (ph, r) in w.expect.items() if r]
+    emit({"phase": "lifecycle", "regime": "summary", "waves": sc["waves"],
+          "jobs_submitted": w.k,
+          "jobs_collected": sum(ph is None for ph, _ in w.expect.values()),
+          "jobs_running": sum(ph == "Running"
+                              for ph, _ in w.expect.values()),
+          "jobs_aborted": sum(ph == "Aborted"
+                              for ph, _ in w.expect.values()),
+          "jobs_with_one_retry": len(restarted),
+          "cycles": len(w.cycles), "launches": res["launches"],
+          "binds": len(w.bound), "double_binds": 0,
+          "wave_controllers_ms": cycle_stats(
+              [{"v": sum(r["controllers_ms"])} for r in res["waves"]], "v"),
+          "wave_cycle_ms": cycle_stats(
+              [{"v": v} for r in res["waves"] for v in r["cycle_ms"]], "v"),
+          "wave_new_jobs_running_ms": cycle_stats(
+              [{"v": r["new_jobs_running_ms"]} for r in res["waves"]], "v")})
+    twin = lifecycle_twin(dev)
+    emit({"phase": "lifecycle_twin", **twin})
+    return {"launches": res["launches"], "burst": res["burst"],
+            "waves": res["waves"], "twin": twin}
+
+
 PHASES = ("kernel", "edges", "small", "solve", "profile", "cycle", "hdrf",
           "evict", "sequential", "sharded", "reschedule", "prewarm",
-          "sidecar", "failover")
+          "sidecar", "failover", "lifecycle")
 
 
 def main() -> int:
@@ -3071,14 +3493,16 @@ def main() -> int:
         ("hdrf", phase_hdrf), ("evict", phase_evict),
         ("sequential", phase_sequential), ("sharded", phase_sharded),
         ("reschedule", phase_reschedule), ("prewarm", phase_prewarm),
-        ("sidecar", phase_sidecar), ("failover", phase_failover))
+        ("sidecar", phase_sidecar), ("failover", phase_failover),
+        ("lifecycle", phase_lifecycle))
         if name in phases}
     emit({"phase": "seconds", **seconds})
     if set(phases) != set(PHASES):
         return 0
-    krows, cyc, hdrf, evict, sharded, resched, prewarm, sidecar, failover = (
-        out[k] for k in ("kernel", "cycle", "hdrf", "evict", "sharded",
-                         "reschedule", "prewarm", "sidecar", "failover"))
+    (krows, cyc, hdrf, evict, sharded, resched, prewarm, sidecar, failover,
+     lifecycle) = (out[k] for k in (
+         "kernel", "cycle", "hdrf", "evict", "sharded", "reschedule",
+         "prewarm", "sidecar", "failover", "lifecycle"))
     main_launches = out["solve"][1]
     head = next(r for r in krows if r["R"] == 2 and r["eligible_rows"]
                 > 0.5 * r["T"] and r["families"] == ["binpack"])
@@ -3087,8 +3511,9 @@ def main() -> int:
     # cycles, the two reschedule passes, the prewarm arm's cycles (its
     # background warms counted apart), the sidecar server's solves (its
     # count read before and after each request) and the failover's
-    # leader, shadow, standby and cold-twin cycles, each counted from 0
-    # (the sequential mode launches no kernel)
+    # leader, shadow, standby and cold-twin cycles, and the lifecycle's
+    # cycles (its twin's counted apart), each counted from 0 (the
+    # sequential mode launches no kernel)
     cycle_rows = [cyc["burst"]] + cyc["steady"]
     evict_launches = sum(r["launches"] + r["next_cycle_launches"]
                          for r in evict)
@@ -3102,10 +3527,11 @@ def main() -> int:
                            for k in ("first", "second"))
     resched_k = resched["kernel"]
     ring = {"prewarm": prewarm["launches"], "sidecar": sidecar["launches"],
-            "failover": failover["launches"]}
+            "failover": failover["launches"],
+            "lifecycle": lifecycle["launches"]}
     if min(ring.values()) <= 0:
-        raise AssertionError(f"a path of the outer ring launched no kernel: "
-                             f"{ring}")
+        raise AssertionError(f"a path of the outer ring or the lifecycle "
+                             f"launched no kernel: {ring}")
     emit({"kernels": [{
         "name": "fused_choice", "route": "cuda",
         "source": "volcano_tpu_torch/csrc/fused_choice.cu",
@@ -3129,6 +3555,8 @@ def main() -> int:
         "launches_prewarm_background": prewarm["launches_prewarm_background"],
         "launches_sidecar_server": ring["sidecar"],
         "launches_failover": ring["failover"],
+        "launches_lifecycle": ring["lifecycle"],
+        "launches_lifecycle_twin": lifecycle["twin"]["launches"],
         "launches_headline_solve": main_launches,
         "max_abs_err": max(r["max_abs_err"]
                            for r in krows + [shard_k, resched_k]),

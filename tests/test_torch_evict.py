@@ -33,6 +33,9 @@ import functools
 
 import numpy as np
 import pytest
+
+pytest.importorskip("jax")  # the JAX reference: absent on the card's machine
+
 import torch
 
 import jax

@@ -19,6 +19,9 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+
+pytest.importorskip("jax")  # the JAX reference: absent on the card's machine
+
 import torch
 
 import jax.numpy as jnp
@@ -44,6 +47,8 @@ def test_import_leaves_jax_and_the_jax_package_out():
     mods = port_modules()
     assert "volcano_tpu_torch.ops.fused_choice" in mods
     assert "volcano_tpu_torch.api.job_info" in mods
+    assert "volcano_tpu_torch.controllers.job.controller" in mods
+    assert "volcano_tpu_torch.webhooks.jobs" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -106,6 +111,31 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
                                      p)
     assert res.assigned.device.type == "cpu"
     Scheduler(SchedulerCache(ClusterStore(), device="cpu")).run_once()
+
+
+def test_read_store_raises_before_any_controller_is_built(monkeypatch):
+    """The read tier needs the networked client: the manager refuses it
+    up front instead of building controllers over a plain store."""
+    import volcano_tpu_torch.controllers as ctl
+    from volcano_tpu_torch.client import ClusterStore
+    built = []
+
+    class Spy:
+        def __init__(self):
+            built.append(self)
+
+        def initialize(self, opt):
+            pass
+
+    for name in ("JobController", "QueueController", "PodGroupController",
+                 "KubeletStandin", "GarbageCollector"):
+        monkeypatch.setattr(ctl, name, Spy)
+    with pytest.raises(NotImplementedError, match="networked client"):
+        ctl.ControllerManager(ClusterStore(), read_store=ClusterStore())
+    assert built == []
+    # without it the same manager builds all five
+    ctl.ControllerManager(ClusterStore())
+    assert len(built) == 5
 
 
 def test_solver_option_errors():

@@ -158,3 +158,72 @@ class SeededCluster:
         after = self.cache.binder.binds
         return sorted((k, v) for k, v in after.items()
                       if before.get(k) != v)
+
+
+class Lifecycle:
+    """One package's job-lifecycle modules (models, store, admission,
+    controllers, scheduler), by the names the lifecycle scenarios use.
+    The port's cache runs on ``device="cpu"``."""
+
+    def __init__(self, pkg: str):
+        self.pkg = pkg
+        self.m = pkg_mod(pkg, "models")
+        self.ann = pkg_mod(pkg, "api").POD_GROUP_ANNOTATION
+        client = pkg_mod(pkg, "client")
+        self.ClusterStore = client.ClusterStore
+        self.AdmissionError = client.AdmissionError
+        self.controllers = pkg_mod(pkg, "controllers")
+        self.job_controller = pkg_mod(pkg, "controllers.job.controller")
+        self.webhooks = pkg_mod(pkg, "webhooks")
+        self.metrics = pkg_mod(pkg, "metrics").metrics
+
+    def cache(self, store):
+        kw = {"device": "cpu"} if self.pkg == "torch" else {}
+        return pkg_mod(self.pkg, "cache").SchedulerCache(store, **kw)
+
+    def scheduler(self, cache, conf=None):
+        return pkg_mod(self.pkg, "scheduler").Scheduler(
+            cache, scheduler_conf=conf)
+
+
+def _value(x):
+    return getattr(x, "value", x)
+
+
+def lifecycle_state(store) -> dict:
+    """What the job lifecycle has left in ``store``, keyed by namespace
+    and name (uids come from a process-wide counter per package, so they
+    never compare across packages): each job's phase and status counts,
+    each pod's node, phase and termination mark, each podgroup's phase
+    (a bare pod's podgroup, named after the pod's uid, by its owner's
+    name), each queue's state and counts, and the names of the commands
+    and of the plugins' objects."""
+    def pg_name(pg):
+        if pg.name.startswith("podgroup-") and pg.owner_references:
+            return "podgroup-of-" + pg.owner_references[0]["name"]
+        return pg.name
+
+    out = {
+        "jobs": sorted(
+            (j.namespace, j.name, _value(j.status.state.phase),
+             j.status.retry_count, j.status.version, j.status.pending,
+             j.status.running, j.status.succeeded, j.status.failed,
+             j.status.terminating, j.status.min_available)
+            for j in store.list("jobs")),
+        "pods": sorted(
+            (p.namespace, p.name, p.node_name, p.phase,
+             p.deletion_timestamp is not None)
+            for p in store.list("pods")),
+        "podgroups": sorted(
+            (pg.namespace, pg_name(pg), _value(pg.status.phase),
+             pg.spec.min_member, pg.spec.queue)
+            for pg in store.list("podgroups")),
+        "queues": sorted(
+            (q.name, _value(q.status.state), q.status.pending,
+             q.status.running, q.status.inqueue, q.status.unknown)
+            for q in store.list("queues")),
+    }
+    for kind in ("commands", "configmaps", "services", "secrets",
+                 "networkpolicies", "pvcs"):
+        out[kind] = sorted((o.namespace, o.name) for o in store.list(kind))
+    return out

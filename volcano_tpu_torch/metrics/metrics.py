@@ -371,6 +371,10 @@ recovery_intents_total = registry.register(Counter(
     "volcano_recovery_intents_total",
     "Bind-intent bindings reconciled at leadership takeover, by outcome "
     "(adopted / redriven / conflict / lost)", ["outcome"]))
+job_retry_total = registry.register(Counter(
+    "volcano_job_retry_total",
+    "Job controller re-enqueues after a failed sync (capped exponential "
+    "backoff per job key)", ["job_id"]))
 
 # -- global rescheduler metrics (reschedule/) -------------------------------
 

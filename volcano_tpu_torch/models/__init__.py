@@ -1,7 +1,14 @@
-"""Core-object shims (Pod/Node) and the scheduling API group (PodGroup,
-Queue) the allocate solve reads. The batch and bus groups belong to the
-controllers and are not part of this package yet."""
+"""CRD-shaped domain model of the port.
 
+Three API groups mirroring the reference (pkg/apis/{batch,bus,scheduling})
+plus core-object shims (Pod/Node) so the framework is cluster-agnostic.
+"""
+
+from .batch import (  # noqa: F401
+    Job, JobEvent, JobPhase, JobSpec, JobState, JobStatus, LifecyclePolicy,
+    TaskSpec, DEFAULT_MAX_RETRY, TASK_SPEC_KEY, JOB_NAME_KEY, JOB_VERSION_KEY,
+)
+from .bus import Action, Command, Event  # noqa: F401
 from .core import (  # noqa: F401
     ConfigMap, Lease, NetworkPolicy, Node, PersistentVolumeClaim, Pod,
     PriorityClass, ResourceQuota, Secret, Service, new_uid,
