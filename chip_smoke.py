@@ -176,7 +176,49 @@ checkout, then, printing one JSON line per phase:
              same script at 200 nodes, 100 jobs and 4 waves on the card
              and on the host (device="cpu"), binds, job, podgroup and
              queue states identical wave by wave;
-18. the kernels line, then the result line.
+18. netstore - the scheduler on the card over the wire: a store process
+             (this script with --role store: a StoreServer over a
+             DurableClusterStore, fsync on every commit) holds the cycle
+             cell; this process's Scheduler runs on the card over a
+             RemoteClusterStore with the delta watch, beside the same
+             script on an in-process store (the twin). The burst (1000
+             gangs in one cycle), then 12 waves of 10 gangs; at wave 8
+             the store process is SIGKILLed once the wave is committed,
+             and restarted on the same port and data directory while the
+             cycle binds (the client's retries, the watches' since:
+             resume). Checks: every cycle's binds equal the twin's, every
+             launch held against the plain version, every pod bound once
+             (the store's audit over both store processes), gangs whole,
+             no node over its allocatable. Reports the burst with its
+             bind-write ms apart, steady p50 / max beside the twin's, the
+             delta watch's frames, bytes (against an object-frame client
+             on the same kinds), decode and apply ms, store requests per
+             cycle, and the restart: WAL recovery ms and records, ms from
+             the kill to the end of the next cycle, that cycle's flatten
+             mode and arena ship;
+19. netha  - failover across processes: a store process seeded with the
+             cycle cell already bound (and a gang that fits no node, so
+             every cycle solves), three scheduler processes (--role
+             scheduler) on the card under run_with_leader_election with
+             fenced writes and the bind-intent journal, the standbys
+             (started once the first leads) running shadow cycles. The
+             leader dies at an armed bind_commit (exc:exit), then by
+             SIGKILL once a wave's first bind landed, a standby taking
+             over each time; the same script then runs with cold
+             standbys. The lease comes from the netstore phase's steady
+             cycles and the store's replay of the cell's pods to a new
+             watcher (four times the longer, at least 8 s: four cold
+             first leader cycles). Checks per arm: every pod bound once,
+             the binds equal an uninterrupted run's in this process, no
+             intent left, the dead leader's token fenced, no bind between
+             a kill's in-flight writes and the lease expiry, one leader
+             transition a kill, each new leader's first cycle launching
+             the kernel and every child's launch held against the plain
+             version. Reports takeover ms (the dead leader's last audited
+             renewal to the new leader's first bind) and the new leader's
+             first cycle warm against cold: kernel library load, CUDA
+             state, flatten mode, arena ship, cycle ms;
+20. the kernels line, then the result line.
 
 `--phases kernel,edges` runs a subset (device and build always run) and
 then prints neither of the last two lines.
@@ -3444,9 +3486,986 @@ def phase_lifecycle(dev, scale=None) -> dict:
             "waves": res["waves"], "twin": twin}
 
 
+# -- the networked store: the scheduler on the card over the wire ------------
+
+#: the cycle cell (phase cycle's cluster), not cut: 2000 nodes of
+#: 32 cpu / 128Gi, queues 1:2:3, gangs of 10 pods; netstore seeds it pending
+#: (a 1000-gang burst), netha seeds it bound; ``restart_wave`` is the wave
+#: whose pods are committed when the store process is SIGKILLed
+NETSTORE = dict(n_nodes=CYCLE["n_nodes"], n_jobs=CYCLE["n_jobs"],
+                tasks_per_job=10, wave_jobs=10, waves=12, restart_wave=8)
+#: netha: waves through three scheduler processes; the leader dies at
+#: ``kill_exit`` (bind_commit armed exc:exit) and at ``kill_sigkill`` (a
+#: SIGKILL once the wave's first bind landed); ``period`` is the HA loop's
+NETHA = dict(n_nodes=CYCLE["n_nodes"], n_jobs=CYCLE["n_jobs"],
+             tasks_per_job=10, wave_jobs=10, waves=6, kill_exit=2,
+             kill_sigkill=4, period=0.25, arms=("warm", "cold"))
+#: the client's transport retries: 10 attempts back off 0.1 s to 2 s,
+#: about 13 s in all, past a store process's restart
+NET_RETRIES = 10
+#: how long a child process may take to reach a state it reports
+CHILD_TIMEOUT_S = 240.0
+
+
+class NetCell:
+    """The cycle cell's objects, each made once here and handed to every
+    store that must hold it (a deep copy in process, the wire's copy
+    remotely), so the stores compared hold the same uids and creation
+    times. Keeps the gangs' pod keys and requests for the placement
+    checks (``StoreCluster.check_placement``)."""
+
+    def __init__(self, n_nodes: int, tasks_per_job: int = 10):
+        from volcano_tpu_torch.models import Node, Queue, QueueSpec
+        self.tpj = tasks_per_job
+        self.k = 0
+        self.gangs: dict = {}
+        self.req: dict = {}
+        self.alloc = {"cpu": 32.0, "memory": _gib("128Gi"), "pods": 110,
+                      "gpu": 0.0}
+        rl = {"cpu": "32", "memory": "128Gi", "pods": "110"}
+        self.base = [("queues", Queue(name=f"q{i}", uid=f"queue-q{i}",
+                                      spec=QueueSpec(weight=i + 1)))
+                     for i in range(3)]
+        self.base += [("nodes", Node(name=f"n{i}", uid=f"node-n{i}",
+                                     allocatable=rl, capacity=dict(rl)))
+                      for i in range(n_nodes)]
+
+    def gangs_objs(self, n_jobs: int, bound_on: int = 0):
+        """``n_jobs`` new gangs: (podgroups, pods, gang names). With
+        ``bound_on`` nodes, pod j of the batch sits on node j % bound_on,
+        Running (5 pods of at most 3 cpu / 4Gi a node at the cell's
+        size), and the podgroups are Running."""
+        from volcano_tpu_torch.api.types import POD_GROUP_ANNOTATION
+        from volcano_tpu_torch.models import (
+            Pod, PodGroup, PodGroupPhase, PodGroupSpec, PodGroupStatus,
+        )
+        pgs, pods, names = [], [], []
+        for _ in range(n_jobs):
+            k = self.k
+            self.k += 1
+            g = f"j{k}"
+            phase = PodGroupPhase.RUNNING if bound_on else \
+                PodGroupPhase.PENDING
+            pgs.append(("podgroups", PodGroup(
+                name=g, namespace="bench", uid=f"pg-{g}",
+                creation_timestamp=1.0 + k,
+                spec=PodGroupSpec(min_member=self.tpj, queue=f"q{k % 3}"),
+                status=PodGroupStatus(phase=phase,
+                                      running=self.tpj if bound_on else 0))))
+            keys = []
+            for i in range(self.tpj):
+                cpu, mem = 1 + (k // 3) % 3, 1 + k % 4
+                node = f"n{(k * self.tpj + i) % bound_on}" if bound_on \
+                    else ""
+                pods.append(("pods", Pod(
+                    name=f"{g}-{i}", namespace="bench", uid=f"pod-{g}-{i}",
+                    creation_timestamp=1.0 + k, node_name=node,
+                    phase="Running" if bound_on else "Pending",
+                    annotations={POD_GROUP_ANNOTATION: g},
+                    containers=[{"requests": {"cpu": str(cpu),
+                                              "memory": f"{mem}Gi"}}])))
+                key = f"bench/{g}-{i}"
+                keys.append(key)
+                self.req[key] = (float(cpu), mem * float(2 ** 30), 0.0)
+            self.gangs[g] = keys
+            names.append(g)
+        return pgs, pods, names
+
+    def canary(self):
+        """A one-pod gang of 40 cpu that fits no node: it stays pending,
+        so every cycle (and every standby's shadow) runs the solve."""
+        from volcano_tpu_torch.api.types import POD_GROUP_ANNOTATION
+        from volcano_tpu_torch.models import (
+            Pod, PodGroup, PodGroupPhase, PodGroupSpec, PodGroupStatus,
+        )
+        return [("podgroups", PodGroup(
+            name="canary", namespace="bench", uid="pg-canary",
+            creation_timestamp=0.5,
+            spec=PodGroupSpec(min_member=1, queue="q0"),
+            status=PodGroupStatus(phase=PodGroupPhase.PENDING))),
+            ("pods", Pod(
+                name="canary-0", namespace="bench", uid="pod-canary-0",
+                creation_timestamp=0.5, phase="Pending",
+                annotations={POD_GROUP_ANNOTATION: "canary"},
+                containers=[{"requests": {"cpu": "40",
+                                          "memory": "1Gi"}}]))]
+
+    def check(self, what: str, binds: dict) -> None:
+        """Gangs whole, no node over its allocatable (``binds``: pod key
+        -> node of the cell's pods)."""
+        StoreCluster.check_placement(self, what, binds, gangs=list(
+            self.gangs))
+
+
+def feed(store, items, remote: bool, wait: bool = True) -> None:
+    """Commit ``items`` ([(kind, obj)]) to ``store``: a deep copy each
+    through ClusterStore.bulk_apply in process; over the wire one
+    bulk_apply wave (ack mode), then (``wait``) until this client's watch
+    streams delivered it (so a cycle's mirror holds the whole wave)."""
+    import copy
+    if not items:
+        return
+    if not remote:
+        res = store.bulk_apply([(k, copy.deepcopy(o), "create")
+                                for k, o in items])
+    else:
+        res = store.bulk_apply([(k, o, "create") for k, o in items],
+                               ack=True)
+    bad = [r for r in res if isinstance(r, Exception)]
+    if bad:
+        raise AssertionError(f"bulk_apply refused {len(bad)}: {bad[0]}")
+    if remote and wait:
+        rv = store.applied_hwm()
+        for kind in sorted({k for k, _ in items}):
+            if not store.wait_stream_applied(kind, rv, timeout=60.0):
+                raise AssertionError(f"the {kind} watch did not reach "
+                                     f"rv {rv} in 60 s")
+
+
+def seed_cell(store, cell, n_jobs: int, bound: bool, remote: bool) -> None:
+    """The cell into ``store``: queues and nodes, then the podgroups,
+    then the pods (each kind committed before the next, as one wave),
+    ``bound`` as netha seeds them, with the canary when bound."""
+    feed(store, cell.base, remote)
+    pgs, pods, _ = cell.gangs_objs(
+        n_jobs, bound_on=len(cell.base) - 3 if bound else 0)
+    if bound:
+        pgs, pods = pgs + cell.canary()[:1], pods + cell.canary()[1:]
+    feed(store, pgs, remote)
+    feed(store, pods, remote)
+
+
+def device_line(role: str, **extra) -> dict:
+    """A child's first line: its role and the CUDA device it runs beside
+    (raises without one: a child never falls back to the host)."""
+    if not torch.cuda.is_available():
+        raise SystemExit(f"{role}: no CUDA device")
+    return {"role": role, "pid": os.getpid(), "device": "cuda:0",
+            "device_name": torch.cuda.get_device_name(0), **extra}
+
+
+class Child:
+    """A child process of this script (``--role ...``): its stdout lines
+    read on a thread, JSON lines parsed (the rest kept for errors)."""
+
+    def __init__(self, name: str, argv: list):
+        import threading
+        self.name = name
+        env = dict(os.environ, PYTHONHASHSEED="0", PYTHONUNBUFFERED="1")
+        env.pop("VOLCANO_FAULTS", None)
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "chip_smoke.py"), *argv],
+            cwd=REPO, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        self.lines: list = []
+        self.raw: list = []
+        self.cv = threading.Condition()
+        threading.Thread(target=self._read, daemon=True,
+                         name=f"child-{name}").start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            line = line.rstrip("\n")
+            with self.cv:
+                self.raw.append(line)
+                del self.raw[:-200]
+                if line.startswith("{"):
+                    try:
+                        self.lines.append(json.loads(line))
+                    except ValueError:
+                        pass
+                self.cv.notify_all()
+        with self.cv:
+            self.cv.notify_all()
+
+    def wait_for(self, pred, timeout: float, what: str) -> dict:
+        """The first JSON line matching ``pred``; raises past ``timeout``
+        or when the child exits first."""
+        deadline = time.time() + timeout
+        with self.cv:
+            while True:
+                for line in self.lines:
+                    if pred(line):
+                        return line
+                if self.proc.poll() is not None and not any(
+                        pred(x) for x in self.lines):
+                    self.cv.wait(0.2)
+                    if not any(pred(x) for x in self.lines):
+                        raise AssertionError(
+                            f"{self.name} exited {self.proc.returncode} "
+                            f"before {what}:\n" + "\n".join(self.raw[-40:]))
+                left = deadline - time.time()
+                if left <= 0:
+                    raise AssertionError(f"{self.name}: no {what} in "
+                                         f"{timeout} s:\n"
+                                         + "\n".join(self.raw[-40:]))
+                self.cv.wait(min(left, 0.5))
+
+    def first(self, timeout: float = CHILD_TIMEOUT_S) -> dict:
+        line = self.wait_for(lambda x: "role" in x, timeout, "first line")
+        if not str(line.get("device", "")).startswith("cuda") \
+                or self.lines[0] is not line:
+            raise AssertionError(f"{self.name}'s first line names no CUDA "
+                                 f"device: {line}")
+        return line
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=30)
+
+
+def start_store(data_dir: str, port: int = 0, seed: str = "",
+                audit: str = "", n_nodes: int = 0,
+                n_jobs: int = 0) -> tuple:
+    argv = ["--role", "store", "--data-dir", data_dir, "--port", str(port)]
+    if seed:
+        argv += ["--seed", seed, "--nodes", str(n_nodes),
+                 "--jobs", str(n_jobs)]
+    if audit:
+        argv += ["--audit", audit]
+    child = Child("store", argv)
+    return child, child.first()
+
+
+def role_store(args) -> int:
+    """``--role store``: a StoreServer over a DurableClusterStore in
+    ``--data-dir`` (fsync every commit, the default), on ``--port``;
+    ``--seed bound`` seeds netha's bound cell into an empty store;
+    ``--audit FILE`` appends one JSON line per committed bind (a pod
+    update that sets a node on an unbound pod) and lease write. Serves
+    until killed; its one line names the device, the address and the
+    recovery."""
+    import threading
+
+    from volcano_tpu_torch.client import DurableClusterStore, StoreServer
+    line = device_line("store")
+    store = DurableClusterStore(args.data_dir)
+    seeded = False
+    if args.seed and not store.list("nodes"):
+        seed_cell(store, NetCell(args.nodes), args.jobs,
+                  bound=args.seed == "bound", remote=False)
+        seeded = True
+    if args.audit:
+        # committed writes only (a watch listener, called at the commit):
+        # a write that loses its compare-and-swap or its fence never
+        # shows here
+        out = open(args.audit, "a", buffering=1)
+
+        def on_pod(event, obj, old):
+            if event == "update" and obj.node_name \
+                    and (old is None or not old.node_name):
+                out.write(json.dumps({
+                    "t": time.time(), "ev": "bind",
+                    "pod": f"{obj.namespace}/{obj.name}",
+                    "node": obj.node_name}) + "\n")
+
+        def on_lease(event, obj, old):
+            if event != "delete":
+                out.write(json.dumps({
+                    "t": time.time(), "ev": "lease",
+                    "holder": obj.holder_identity,
+                    "renew": obj.renew_time,
+                    "duration": obj.lease_duration_seconds,
+                    "epoch": obj.lease_transitions}) + "\n")
+
+        store.watch("pods", on_pod, replay=False)
+        store.watch("leases", on_lease, replay=False)
+    server = StoreServer(store, port=args.port).start()
+    print(json.dumps({**line, "address": server.address,
+                      "recovery_ms": store.recovery_ms,
+                      "recovered_records": store.recovered_records,
+                      "recovered_snapshot_rv": store.recovered_snapshot_rv,
+                      "rv": store._rv, "seeded": seeded}), flush=True)
+    threading.Event().wait()
+    return 0
+
+
+def store_requests(remote) -> dict:
+    """The store server's request counters by op (``store_info``)."""
+    return dict(remote._request({"op": "store_info"}).get("requests", {}))
+
+
+class TimedBinder:
+    """The cache's binder with its store writes timed, and each pod's
+    binds counted and its node kept (the bind-write share of a cycle)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.seconds = 0.0
+        self.count: dict = {}
+        self.nodes: dict = {}
+
+    def bind(self, pod, hostname: str) -> None:
+        t0 = time.perf_counter()
+        self.inner.bind(pod, hostname)
+        self.seconds += time.perf_counter() - t0
+        key = f"{pod.namespace}/{pod.name}"
+        self.count[key] = self.count.get(key, 0) + 1
+        self.nodes[key] = hostname
+
+
+def net_scheduler(dev, cluster):
+    """The port's Scheduler on ``dev`` over ``cluster`` with a timed
+    DefaultBinder (FakeEvictor: nothing is evicted here)."""
+    from volcano_tpu_torch.cache import FakeEvictor, SchedulerCache
+    from volcano_tpu_torch.cache.cache import DefaultBinder
+    from volcano_tpu_torch.scheduler import Scheduler
+    cache = SchedulerCache(cluster, device=dev)
+    cache.binder = TimedBinder(DefaultBinder(cluster))
+    cache.evictor = FakeEvictor()
+    cache.run()
+    cache.wait_for_cache_sync()
+    return cache, Scheduler(cache)
+
+
+def net_cycle(sched, what: str, remote=None, fresh_server=False) -> dict:
+    """One run_once, its kernel count set to 0 just before and read just
+    after; the binder's write ms apart and, over the wire, the store
+    requests the cycle made (``store_info`` read around it, that read not
+    counted; against a server that just started, its counters from 0,
+    the resumed watch streams included)."""
+    from volcano_tpu_torch.ops import fused_choice as fc
+    binder = sched.cache.binder
+    n0, s0 = sum(binder.count.values()), binder.seconds
+    req0 = {} if fresh_server or remote is None else store_requests(remote)
+    fc.fused_choice.launches = 0
+    t0 = time.perf_counter()
+    sched.run_once()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = fc.fused_choice.launches
+    t = sched.last_cycle_timing
+    row = {"cycle": what, "cycle_ms": ms,
+           "binds": sum(binder.count.values()) - n0,
+           "bind_write_ms": (binder.seconds - s0) * 1e3,
+           "launches": launches,
+           **{k: t[k] for k in CYCLE_KEYS if k in t}}
+    for k in ("flatten_mode", "order_mode", "arena_full_ship",
+              "arena_bytes_shipped", "allocate_error", "host_fallback",
+              "delta_events_applied", "delta_decode_ms",
+              "delta_apply_ms"):
+        if k in t:
+            row[k] = t[k]
+    if remote is not None:
+        req1 = store_requests(remote)
+        row["store_requests"] = sum(req1.values()) - sum(req0.values()) \
+            - (0 if fresh_server else 1)
+    if t.get("allocate_error") or t.get("host_fallback"):
+        raise AssertionError(f"{what}: the cycle left the device path: "
+                             f"{t.get('allocate_error')}")
+    if row["binds"] and launches <= 0:
+        raise AssertionError(f"{what}: bound {row['binds']} pods without "
+                             f"a kernel launch")
+    return row
+
+
+def read_audit(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(x) for x in f if x.strip()]
+
+
+def store_pod_binds(remote) -> dict:
+    return {f"{p.namespace}/{p.name}": p.node_name
+            for p in remote.list("pods", namespace="bench") if p.node_name}
+
+
+def phase_netstore(dev, scale=None) -> dict:
+    """The port's Scheduler on the card in this process over a
+    RemoteClusterStore (delta watch) against a store process (a
+    StoreServer over a DurableClusterStore, fsync every commit), beside
+    the same script on an in-process ClusterStore on the card: the
+    cycle cell's burst of 1000 gangs, then ``waves`` waves of 10 gangs.
+    At ``restart_wave`` the store process is SIGKILLed once the wave is
+    committed and before it is bound, and restarted on the same port and
+    data directory while the cycle runs: its binds ride the client's
+    retries and the watch streams resume with ``since:``. Checks: every
+    cycle's binds equal the twin's, bind for bind; every kernel launch
+    held against the plain version; every pod bound once (the store's
+    audit across both store processes) and the store's pods equal the
+    binds; gangs whole and no node over its allocatable."""
+    import tempfile
+
+    from volcano_tpu_torch.client import ClusterStore, RemoteClusterStore
+    sc = dict(NETSTORE, **(scale or {}))
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="netstore-",
+                           dir=os.path.join(REPO, "build"))
+    wal, audit_path = os.path.join(tmp, "wal"), os.path.join(tmp,
+                                                             "audit.jsonl")
+    store, first = start_store(wal, audit=audit_path)
+    stores = [store]
+    remote = plain = None
+    try:
+        remote = RemoteClusterStore(first["address"], delta_watch=True,
+                                    retry_attempts=NET_RETRIES)
+        twin_store = ClusterStore()
+        cell = NetCell(sc["n_nodes"], sc["tasks_per_job"])
+        feed(remote, cell.base, True, wait=False)
+        feed(twin_store, cell.base, False)
+        cache, sched = net_scheduler(dev, remote)
+        twin_cache, twin = net_scheduler(dev, twin_store)
+        # an object-frame client on the same kinds, listeners empty: the
+        # wire bytes the delta streams are held against
+        plain = RemoteClusterStore(first["address"],
+                                   retry_attempts=NET_RETRIES)
+        for kind in ("pods", "nodes", "podgroups", "queues",
+                     "priorityclasses", "resourcequotas"):
+            plain.watch(kind, lambda *a: None)
+        rows, twin_rows, restart = [], [], {}
+
+        def wave(n_jobs, what, kill=False):
+            pgs, pods, names = cell.gangs_objs(n_jobs)
+            for items in (pgs, pods):
+                feed(remote, items, True)
+                feed(twin_store, items, False)
+            keys = [k for g in names for k in cell.gangs[g]]
+            if kill:
+                # committed (acked, fsynced) and in the mirror, not bound
+                t_kill = time.perf_counter()
+                stores[-1].kill()
+                stores.append(Child("store", [
+                    "--role", "store", "--data-dir", wal, "--port",
+                    str(remote.port), "--audit", audit_path]))
+            with KernelAudit() as kaudit:
+                row = net_cycle(sched, what, remote, fresh_server=kill)
+            if kill:
+                restart.update(
+                    kill_to_next_cycle_end_ms=(time.perf_counter()
+                                               - t_kill) * 1e3,
+                    **{k: v for k, v in stores[-1].first().items()
+                       if k in ("recovery_ms", "recovered_records",
+                                "recovered_snapshot_rv", "device_name")},
+                    first_cycle={k: row.get(k) for k in (
+                        "cycle_ms", "flatten_mode", "arena_full_ship",
+                        "arena_bytes_shipped", "binds", "bind_write_ms")},
+                    watch_resumes=remote.watch_resumes,
+                    watch_failed=remote.watch_failed)
+            row["audit"] = kaudit.summary()
+            if row["audit"]["launches_checked"] != row["launches"]:
+                raise AssertionError(f"{what}: {row['launches']} launches, "
+                                     f"{row['audit']} checked")
+            trow = net_cycle(twin, what)
+            mine = {k: cache.binder.nodes.get(k) for k in keys}
+            theirs = {k: twin_cache.binder.nodes.get(k) for k in keys}
+            if mine != theirs or None in mine.values():
+                diff = [k for k in keys if mine[k] != theirs[k]]
+                raise AssertionError(f"{what}: {len(diff)} binds differ "
+                                     f"from the in-process twin or are "
+                                     f"missing: {diff[:5]}")
+            rows.append(row)
+            twin_rows.append(trow)
+
+        wave(sc["n_jobs"], "burst")
+        for i in range(sc["waves"]):
+            wave(sc["wave_jobs"], f"wave {i}",
+                 kill=i == sc["restart_wave"])
+        if remote.watch_failed or not restart.get("watch_resumes"):
+            raise AssertionError(f"the watch did not resume over the "
+                                 f"store restart: {restart}")
+        binds = store_pod_binds(remote)
+        if binds != cache.binder.nodes:
+            raise AssertionError("the store's pods differ from the binds "
+                                 "the scheduler wrote")
+        per_pod: dict = {}
+        for rec in read_audit(audit_path):
+            if rec["ev"] == "bind":
+                per_pod[rec["pod"]] = per_pod.get(rec["pod"], 0) + 1
+        dups = {k: n for k, n in per_pod.items() if n != 1}
+        if dups or set(per_pod) != set(binds) \
+                or max(cache.binder.count.values()) != 1:
+            raise AssertionError(f"pods bound more than once or unaudited: "
+                                 f"{list(dups)[:5]}")
+        cell.check("netstore", binds)
+        ds = dict(remote.delta_stats)
+        # steady: the waves but the one the store restart held up
+        steady = [r for i, r in enumerate(rows[1:])
+                  if i != sc["restart_wave"]]
+        tsteady = [r for i, r in enumerate(twin_rows[1:])
+                   if i != sc["restart_wave"]]
+        out = {
+            "phase": "netstore", "nodes": sc["n_nodes"],
+            "pods_bound": len(binds), "twin_equal": True, "lost": 0,
+            "duplicates": 0,
+            "burst": rows[0], "twin_burst": twin_rows[0],
+            "burst_bind_write_share": rows[0]["bind_write_ms"]
+            / rows[0]["cycle_ms"],
+            "steady_p50_ms": statistics.median(r["cycle_ms"]
+                                               for r in steady),
+            "steady_max_ms": max(r["cycle_ms"] for r in steady),
+            "twin_steady_p50_ms": statistics.median(r["cycle_ms"]
+                                                    for r in tsteady),
+            "twin_steady_max_ms": max(r["cycle_ms"] for r in tsteady),
+            "store_requests_per_cycle": [r["store_requests"] for r in rows],
+            "delta_stats": ds,
+            "object_stream_bytes": plain.delta_stats["bytes_object"],
+            "delta_bytes_per_object_byte": ds["bytes_delta"]
+            / max(plain.delta_stats["bytes_object"], 1),
+            "restart": restart, "restart_wave": sc["restart_wave"],
+            "waves": rows[1:],
+            "launches": sum(r["launches"] for r in rows),
+            "twin_launches": sum(r["launches"] for r in twin_rows)}
+        emit(out)
+        return out
+    finally:
+        for client in (remote, plain):
+            if client is not None:
+                client.close()
+        for child in stores:
+            child.kill()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def role_scheduler(args) -> int:
+    """``--role scheduler``: the port's Scheduler on the card under
+    run_with_leader_election over a RemoteClusterStore at ``--server``
+    (fenced writes, the bind-intent journal, takeover reconciliation;
+    shadow cycles unless ``--cold-standby``). Every kernel launch is
+    held against the plain version (KernelAudit). A configmap
+    ``faults-<identity>`` arms this process's fault injector; a
+    configmap ``netha-wave`` names the gangs of the wave in flight, and
+    a leader cycle waits until each has all its pods in the mirror, so
+    a wave is decided in one cycle as the in-process run decides it.
+    Prints one JSON line per event: ``synced``, ``armed``, the first
+    shadow cycle that launched the kernel (``warm``), and every leader
+    cycle that launched it or was its first (``cycle``), each with the
+    process's cumulative launch and audit counts."""
+    import threading
+
+    from volcano_tpu_torch.cache import SchedulerCache
+    from volcano_tpu_torch.client import RemoteClusterStore
+    from volcano_tpu_torch.ops import fused_choice as fc
+    from volcano_tpu_torch.resilience import faults
+    from volcano_tpu_torch.scheduler import Scheduler
+    print(json.dumps(device_line("scheduler", identity=args.identity,
+                                 cold=args.cold_standby)), flush=True)
+    dev = torch.device("cuda", 0)
+    remote = RemoteClusterStore(args.server, delta_watch=True,
+                                retry_attempts=NET_RETRIES,
+                                on_watch_failure=lambda: os._exit(3))
+    cache = SchedulerCache(remote, device=dev)
+    gate: dict = {}
+    state = {"leader_cycles": 0, "shadows": 0, "warm": False,
+             "kernel_load_ms": None}
+    ident = args.identity
+
+    def on_configmap(event, cm, old):
+        if event == "delete":
+            return
+        if cm.name == f"faults-{ident}" and (cm.data or {}).get("spec"):
+            faults.configure(cm.data["spec"])
+            print(json.dumps({"ev": "armed", "id": ident,
+                              "spec": cm.data["spec"]}), flush=True)
+        elif cm.name == "netha-wave":
+            gate.update(gangs=(cm.data or {}).get("gangs", "").split(","),
+                        pods=int((cm.data or {}).get("pods", "0")))
+
+    remote.watch("configmaps", on_configmap)
+    load = fc._kernel
+
+    def timed_load():
+        if fc._lib is not None:
+            return load()
+        t0 = time.perf_counter()
+        lib = load()
+        state["kernel_load_ms"] = (time.perf_counter() - t0) * 1e3
+        return lib
+
+    fc._kernel = timed_load
+
+    def wave_in_mirror() -> bool:
+        with remote.locked():
+            for g in gate.get("gangs") or ():
+                job = cache.jobs.get(f"bench/{g}") if g else None
+                if g and (job is None or job.pod_group is None
+                          or len(job.tasks) != gate["pods"]):
+                    return False
+        return True
+
+    class HAScheduler(Scheduler):
+        def run_once(self):
+            if not wave_in_mirror():
+                return
+            before = {"cuda_initialized": torch.cuda.is_initialized(),
+                      "kernel_loaded": fc._lib is not None,
+                      "arena_sessions": getattr(cache.device_cache,
+                                                "sessions", 0)}
+            n0 = fc.fused_choice.launches
+            state["kernel_load_ms"] = None
+            t0 = time.time()
+            super().run_once()
+            t1 = time.time()
+            state["leader_cycles"] += 1
+            launches = fc.fused_choice.launches - n0
+            if launches or state["leader_cycles"] == 1:
+                t = self.last_cycle_timing
+                print(json.dumps({
+                    "ev": "cycle", "id": ident,
+                    "n": state["leader_cycles"], "t0": t0, "t1": t1,
+                    "ms": (t1 - t0) * 1e3, "launches": launches,
+                    "total_launches": fc.fused_choice.launches,
+                    "checked": len(audit.shapes),
+                    "kernel_load_ms": state["kernel_load_ms"],
+                    "shadows": state["shadows"],
+                    **{f"{k}_before": v for k, v in before.items()},
+                    **{k: t.get(k) for k in (
+                        "flatten_mode", "arena_full_ship",
+                        "arena_bytes_shipped", "allocate_error",
+                        "session_compiles", "dispatch_ms", "total_ms")}}),
+                    flush=True)
+
+        def shadow_cycle(self):
+            n0 = fc.fused_choice.launches
+            super().shadow_cycle()
+            state["shadows"] += 1
+            if fc.fused_choice.launches > n0 and not state["warm"]:
+                state["warm"] = True
+                print(json.dumps({
+                    "ev": "warm", "id": ident, "shadows": state["shadows"],
+                    "total_launches": fc.fused_choice.launches,
+                    "checked": len(audit.shapes)}), flush=True)
+
+    sync = cache.wait_for_cache_sync
+
+    def synced():
+        ok = sync()
+        print(json.dumps({"ev": "synced", "id": ident}), flush=True)
+        return ok
+
+    cache.wait_for_cache_sync = synced
+    sched = HAScheduler(cache, period=args.period)
+    with KernelAudit() as audit:
+        sched.run_with_leader_election(
+            threading.Event(), identity=ident, lease_duration=args.lease,
+            renew_deadline=args.renew, retry_period=args.retry,
+            warm_standby=not args.cold_standby)
+    return 0
+
+
+def netha_golden(dev, sc) -> dict:
+    """The uninterrupted run in this process on the card: the bound cell
+    (as the store process seeds it), one idle cycle, then one cycle a
+    wave. Returns the waves' binds and the wave objects."""
+    from volcano_tpu_torch.client import ClusterStore
+    cell = NetCell(sc["n_nodes"], sc["tasks_per_job"])
+    store = ClusterStore()
+    seed_cell(store, cell, sc["n_jobs"], bound=True, remote=False)
+    cache, sched = net_scheduler(dev, store)
+    sched.run_once()
+    waves = []
+    for _ in range(sc["waves"]):
+        pgs, pods, names = cell.gangs_objs(sc["wave_jobs"])
+        feed(store, pgs, False)
+        feed(store, pods, False)
+        sched.run_once()
+        waves.append((pgs, pods, names))
+    binds = {k: cache.binder.nodes.get(k) for _, _, names in waves
+             for g in names for k in cell.gangs[g]}
+    if None in binds.values():
+        raise AssertionError("the uninterrupted run left a wave pod "
+                             "unbound")
+    return {"binds": binds, "waves": waves, "cell": cell}
+
+
+def lease_of(remote):
+    return remote.try_get("leases", "volcano")
+
+
+#: the lease's floor: four times the longest first leader cycle of a
+#: cold scheduler process measured on the card (1540-1755 ms, NVIDIA H100
+#: 80GB HBM3 at 700 W, this phase's cold arm; PERF.md): a new process's
+#: first device work holds it, and its renewals wait
+NETHA_LEASE_FLOOR_S = 8.0
+
+
+def netha_lease(netstore, replay_ms: float) -> dict:
+    """The lease against what this run measured: the netstore phase's
+    longest steady cycle over the wire (past the first wave after the
+    burst, the restart wave left out) and ``replay_ms``, the store's
+    replay of the bound cell's pods to one new watcher (it holds the
+    store's lock: every renewal waits). Four times the longer, at least
+    NETHA_LEASE_FLOOR_S; renew at 3/4, retry at 1/8."""
+    steady = [r["cycle_ms"] for i, r in enumerate(netstore["waves"])
+              if i not in (0, netstore["restart_wave"])] if netstore \
+        else [500.0]
+    longest = max(NETHA_LEASE_FLOOR_S,
+                  4.0 * max(max(steady), replay_ms) / 1e3)
+    return {"duration": round(longest, 1),
+            "renew": round(0.75 * longest, 1),
+            "retry": round(longest / 8.0, 2),
+            "from_steady_max_ms": max(steady), "from_replay_ms": replay_ms,
+            "floor_s": NETHA_LEASE_FLOOR_S}
+
+
+def netha_arm(dev, sc, cold: bool, golden: dict, netstore) -> dict:
+    """One arm: a store process holding the bound cell, three scheduler
+    processes (the standbys started once the first holds the lease); the
+    leader dies twice (bind_commit exc:exit, then a SIGKILL mid-wave),
+    each time a standby takes over."""
+    import tempfile
+
+    from volcano_tpu_torch.client import FencedError, RemoteClusterStore
+    from volcano_tpu_torch.models import ConfigMap
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="netha-", dir=os.path.join(REPO, "build"))
+    audit_path = os.path.join(tmp, "audit.jsonl")
+    children: dict = {}
+    remote = None
+    try:
+        store, first = start_store(
+            os.path.join(tmp, "wal"), seed="bound", audit=audit_path,
+            n_nodes=sc["n_nodes"], n_jobs=sc["n_jobs"])
+        children["store"] = store
+        remote = RemoteClusterStore(first["address"],
+                                    retry_attempts=NET_RETRIES)
+        bound: dict = {}
+
+        def on_pod(event, pod, old):
+            key = f"{pod.namespace}/{pod.name}"
+            if pod.node_name and key not in bound:
+                bound[key] = pod.node_name
+
+        t0 = time.perf_counter()
+        remote.watch("pods", on_pod)
+        lease = netha_lease(netstore, (time.perf_counter() - t0) * 1e3)
+        seeded = set(bound)
+
+        def spawn(ident):
+            argv = ["--role", "scheduler", "--server", first["address"],
+                    "--identity", ident, "--lease", str(lease["duration"]),
+                    "--renew", str(lease["renew"]),
+                    "--retry", str(lease["retry"]),
+                    "--period", str(sc["period"])]
+            if cold:
+                argv.append("--cold-standby")
+            children[ident] = Child(ident, argv)
+            return children[ident]
+
+        def ready(ident):
+            ev = "synced" if cold else "warm"
+            children[ident].wait_for(lambda x: x.get("ev") == ev,
+                                     CHILD_TIMEOUT_S, ev)
+
+        spawn("A").first()
+        deadline = time.time() + CHILD_TIMEOUT_S
+        while True:
+            held = lease_of(remote)
+            if held is not None and held.holder_identity == "A":
+                break
+            if time.time() > deadline:
+                raise AssertionError("A did not take the lease")
+            time.sleep(0.1)
+        # two standbys, so the second kill finds one ready: the first
+        # death hands over to either, the second to the other
+        leader, standbys = "A", ["B", "C"]
+        for ident in standbys:
+            spawn(ident)
+        for ident in standbys:
+            children[ident].first()
+        children[leader].wait_for(lambda x: x.get("ev") == "cycle",
+                                  CHILD_TIMEOUT_S, "first leader cycle")
+        for ident in standbys:
+            ready(ident)
+        kills, takeovers, late_write = [], [], {}
+        for w, (pgs, pods, names) in enumerate(golden["waves"]):
+            remote.apply("configmaps", ConfigMap(
+                name="netha-wave", namespace="default",
+                data={"gangs": ",".join(names),
+                      "pods": str(sc["tasks_per_job"])}))
+            killing = w in (sc["kill_exit"], sc["kill_sigkill"])
+            if killing:
+                held = lease_of(remote)
+                if held.holder_identity != leader:
+                    raise AssertionError(
+                        f"the lease moved from {leader} to "
+                        f"{held.holder_identity} without a kill:\n"
+                        + "\n".join(children[leader].raw[-20:]))
+                token = {"lock": "volcano", "holder": leader,
+                         "epoch": held.lease_transitions}
+            if w == sc["kill_exit"]:
+                remote.apply("configmaps", ConfigMap(
+                    name=f"faults-{leader}", namespace="default",
+                    data={"spec": "bind_commit=at:1,exc:exit"}))
+                children[leader].wait_for(lambda x: x.get("ev") == "armed",
+                                          60.0, "armed")
+            keys = [k for g in names for k in golden["cell"].gangs[g]]
+            feed(remote, pgs, True, wait=False)
+            feed(remote, pods, True, wait=False)
+            t_sub = time.time()
+            t_kill = t_sub
+            if w == sc["kill_sigkill"]:
+                deadline = time.time() + 60.0
+                while not any(k in bound for k in keys):
+                    if time.time() > deadline:
+                        raise AssertionError(f"wave {w}: no bind in 60 s")
+                    time.sleep(0.002)
+                t_kill = time.time()
+                children[leader].kill()
+            deadline = time.time() + 120.0
+            while not all(k in bound for k in keys):
+                if time.time() > deadline:
+                    raise AssertionError(
+                        f"wave {w}: {sum(k in bound for k in keys)} of "
+                        f"{len(keys)} bound in 120 s")
+                time.sleep(0.01)
+            if not killing:
+                continue
+            dead = leader
+            rc = children[dead].proc.wait(timeout=60)
+            if w == sc["kill_exit"] and rc != 17:
+                raise AssertionError(f"{dead} exited {rc}, not at the "
+                                     f"armed bind_commit")
+            held = lease_of(remote)
+            if held.holder_identity not in standbys:
+                raise AssertionError(f"no standby of {standbys} took over: "
+                                     f"{held.holder_identity}")
+            new = held.holder_identity
+            # the dead leader's token, presented late, is fenced
+            victim = remote.get("pods", keys[0].split("/")[1], "bench")
+            before = victim.node_name
+            try:
+                remote.update("pods", victim, fencing=token)
+            except FencedError:
+                late_write[dead] = "fenced"
+            else:
+                raise AssertionError(f"{dead}'s late write landed")
+            if remote.get("pods", victim.name, "bench").node_name != before:
+                raise AssertionError("the fenced write changed the pod")
+            new_cycle = children[new].wait_for(
+                lambda x: x.get("ev") == "cycle", 60.0,
+                "first leader cycle")
+            kills.append({"wave": w, "dead": dead, "rc": rc,
+                          "how": "bind_commit exc:exit"
+                          if w == sc["kill_exit"] else "SIGKILL",
+                          "t": t_kill})
+            takeovers.append({"wave": w, "dead": dead, "new": new,
+                              "first_leader_cycle": new_cycle,
+                              "wave_keys": keys})
+            leader = new
+            standbys.remove(new)
+        # every wave's pod bound once, as the uninterrupted run bound it
+        binds = {k: v for k, v in bound.items() if k not in seeded}
+        audit = read_audit(audit_path)
+        per_pod: dict = {}
+        for rec in audit:
+            if rec["ev"] == "bind":
+                per_pod[rec["pod"]] = per_pod.get(rec["pod"], 0) + 1
+        dups = {k: n for k, n in per_pod.items() if n != 1}
+        if dups or set(per_pod) != set(golden["binds"]):
+            raise AssertionError(f"binds not once each: {list(dups)[:5]}, "
+                                 f"{len(per_pod)} audited")
+        if binds != golden["binds"]:
+            diff = sorted(k for k in set(binds) | set(golden["binds"])
+                          if binds.get(k) != golden["binds"].get(k))
+            raise AssertionError(f"{len(diff)} binds differ from the "
+                                 f"uninterrupted run: {diff[:5]}")
+        # the leader sweeps settled intents once a cycle
+        deadline = time.time() + 30.0
+        while remote.list("bindintents"):
+            if time.time() > deadline:
+                raise AssertionError("bind intents left after 30 s")
+            time.sleep(0.1)
+        # leadership: the first acquisition, then one change a kill
+        holders = [r["holder"] for r in audit if r["ev"] == "lease"
+                   and r["holder"]]
+        changes = sum(1 for a, b in zip(holders, holders[1:]) if a != b)
+        if changes != len(kills):
+            raise AssertionError(
+                f"{changes} leader transitions for {len(kills)} kills: "
+                + str([(round(r["t"], 2), r["holder"], round(r["renew"], 2))
+                       for r in audit if r["ev"] == "lease"][:40]))
+        rows = []
+        for tk, kill in zip(takeovers, kills):
+            renews = [r for r in audit if r["ev"] == "lease"
+                      and r["holder"] == tk["dead"]]
+            last_renew = renews[-1]["renew"]
+            expiry = last_renew + renews[-1]["duration"]
+            wave_binds = sorted(r["t"] for r in audit if r["ev"] == "bind"
+                                and r["pod"] in tk["wave_keys"])
+            # past the kill, only requests the dead leader had already
+            # sent may land before its lease expired (within 0.2 s);
+            # every other bind waits for the expiry (0.1 s clock slack)
+            after = [t for t in wave_binds if t > kill["t"]]
+            early = [t for t in after if kill["t"] + 0.2 < t < expiry - 0.1]
+            taken = [t for t in after if t >= expiry - 0.1]
+            if early or not taken:
+                raise AssertionError(
+                    f"wave {tk['wave']}: {len(early)} binds between the "
+                    f"kill and the lease expiry, {len(taken)} after it")
+            rows.append({"wave": tk["wave"], "dead": tk["dead"],
+                         "new": tk["new"], "how": kill["how"],
+                         "takeover_ms": (taken[0] - last_renew) * 1e3,
+                         "lease_expiry_to_first_bind_ms":
+                             (taken[0] - expiry) * 1e3,
+                         "dead_leader_binds": len(wave_binds) - len(taken),
+                         "first_leader_cycle": tk["first_leader_cycle"]})
+        for row in rows:
+            c = row["first_leader_cycle"]
+            if c.get("allocate_error") or c["launches"] <= 0 \
+                    or c["checked"] != c["total_launches"]:
+                raise AssertionError(f"{row['new']}'s first leader cycle: "
+                                     f"{c}")
+        launches, checked = 0, 0
+        for ident, child in children.items():
+            if ident == "store":
+                continue
+            counted = [x for x in child.lines if "total_launches" in x]
+            if counted:
+                launches += counted[-1]["total_launches"]
+                checked += counted[-1]["checked"]
+        if checked != launches:
+            raise AssertionError(f"{launches} launches, {checked} held "
+                                 f"against the plain version")
+        return {"arm": "cold" if cold else "warm", "lease": lease,
+                "lost": 0, "duplicates": 0, "golden_equal": True,
+                "intents_left": 0,
+                "late_writes": late_write, "leader_transitions": changes,
+                "kills": [{k: v for k, v in x.items() if k != "t"}
+                          for x in kills],
+                "takeovers": rows, "launches": launches,
+                "launches_checked": checked}
+    finally:
+        if remote is not None:
+            remote.close()
+        for child in children.values():
+            child.kill()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_netha(dev, scale=None, netstore=None) -> dict:
+    """Failover across processes: a store process holding the cycle cell
+    already bound (seeded there, with a canary gang that fits no node so
+    every cycle solves), three scheduler processes on the card under
+    run_with_leader_election. The leader dies twice: at an armed
+    bind_commit (exc:exit) and by SIGKILL once a wave's first bind
+    landed; a standby takes over each time. The arm runs with warm
+    standbys (shadow cycles), then with cold ones. The lease is set per
+    arm from measured stalls (``netha_lease``). Checks per arm: every
+    pod bound once (the store's audit), the waves' binds equal the
+    uninterrupted in-process run's, no intent left, the dead leader's
+    token fenced, no bind after a kill before the lease expired but the
+    dead leader's own, one leader transition a kill, and each new
+    leader's first cycle launching the kernel with every launch held
+    against the plain version."""
+    sc = dict(NETHA, **(scale or {}))
+    golden = netha_golden(dev, sc)
+    arms = []
+    for arm in sc["arms"]:
+        t0 = time.perf_counter()
+        arms.append(netha_arm(dev, sc, cold=arm == "cold", golden=golden,
+                              netstore=netstore))
+        arms[-1]["seconds"] = time.perf_counter() - t0
+    out = {"phase": "netha", "nodes": sc["n_nodes"],
+           "waves": sc["waves"], "arms": arms,
+           "launches": sum(a["launches"] for a in arms)}
+    emit(out)
+    return out
+
+
 PHASES = ("kernel", "edges", "small", "solve", "profile", "cycle", "hdrf",
           "evict", "sequential", "sharded", "reschedule", "prewarm",
-          "sidecar", "failover", "lifecycle")
+          "sidecar", "failover", "lifecycle", "netstore", "netha")
 
 
 def main() -> int:
@@ -3463,7 +4482,28 @@ def main() -> int:
                     help="run one arm of the prewarm phase in this process "
                          "and print its JSON (the prewarm phase starts "
                          "each arm this way)")
+    ap.add_argument("--role", choices=("store", "scheduler"),
+                    help="run as a child of the netstore / netha phases "
+                         "(role_store, role_scheduler)")
+    ap.add_argument("--data-dir")
+    ap.add_argument("--port", type=int, default=0)
+    ap.add_argument("--seed", choices=("bound",))
+    ap.add_argument("--nodes", type=int, default=0)
+    ap.add_argument("--jobs", type=int, default=0)
+    ap.add_argument("--audit")
+    ap.add_argument("--server")
+    ap.add_argument("--identity")
+    ap.add_argument("--lease", type=float, default=2.0)
+    ap.add_argument("--renew", type=float, default=1.5)
+    ap.add_argument("--retry", type=float, default=0.25)
+    ap.add_argument("--period", type=float, default=0.25)
+    ap.add_argument("--cold-standby", action="store_true")
     args = ap.parse_args()
+    if os.environ.get("PYTHONHASHSEED") != "0":
+        # the netha phase compares decisions across processes: this
+        # process and its children hash strings alike
+        os.execve(sys.executable, [sys.executable, *sys.argv],
+                  dict(os.environ, PYTHONHASHSEED="0"))
     phases = args.phases.split(",")
     if not set(phases) <= set(PHASES):
         ap.error(f"unknown phases {set(phases) - set(PHASES)}")
@@ -3472,6 +4512,10 @@ def main() -> int:
         return 2
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    if args.role == "store":
+        return role_store(args)
+    if args.role == "scheduler":
+        return role_scheduler(args)
     if args.prewarm_arm:
         print(json.dumps(prewarm_arm(dev, args.prewarm_arm == "on",
                                      PREWARM)), flush=True)
@@ -3494,8 +4538,11 @@ def main() -> int:
         ("sequential", phase_sequential), ("sharded", phase_sharded),
         ("reschedule", phase_reschedule), ("prewarm", phase_prewarm),
         ("sidecar", phase_sidecar), ("failover", phase_failover),
-        ("lifecycle", phase_lifecycle))
+        ("lifecycle", phase_lifecycle), ("netstore", phase_netstore))
         if name in phases}
+    if "netha" in phases:
+        out["netha"] = run("netha", phase_netha, dev, None,
+                           out.get("netstore"))
     emit({"phase": "seconds", **seconds})
     if set(phases) != set(PHASES):
         return 0
@@ -3512,8 +4559,11 @@ def main() -> int:
     # background warms counted apart), the sidecar server's solves (its
     # count read before and after each request) and the failover's
     # leader, shadow, standby and cold-twin cycles, and the lifecycle's
-    # cycles (its twin's counted apart), each counted from 0 (the
-    # sequential mode launches no kernel)
+    # cycles (its twin's counted apart), the netstore scheduler's cycles
+    # over the wire (its in-process twin's apart) and the netha scheduler
+    # processes' leader and shadow cycles (each child counts from 0 at its
+    # start and reports its total), each counted from 0 (the sequential
+    # mode launches no kernel)
     cycle_rows = [cyc["burst"]] + cyc["steady"]
     evict_launches = sum(r["launches"] + r["next_cycle_launches"]
                          for r in evict)
@@ -3528,10 +4578,12 @@ def main() -> int:
     resched_k = resched["kernel"]
     ring = {"prewarm": prewarm["launches"], "sidecar": sidecar["launches"],
             "failover": failover["launches"],
-            "lifecycle": lifecycle["launches"]}
+            "lifecycle": lifecycle["launches"],
+            "netstore": out["netstore"]["launches"],
+            "netha": out["netha"]["launches"]}
     if min(ring.values()) <= 0:
-        raise AssertionError(f"a path of the outer ring or the lifecycle "
-                             f"launched no kernel: {ring}")
+        raise AssertionError(f"a path of the outer ring, the lifecycle or "
+                             f"the network launched no kernel: {ring}")
     emit({"kernels": [{
         "name": "fused_choice", "route": "cuda",
         "source": "volcano_tpu_torch/csrc/fused_choice.cu",
@@ -3557,6 +4609,9 @@ def main() -> int:
         "launches_failover": ring["failover"],
         "launches_lifecycle": ring["lifecycle"],
         "launches_lifecycle_twin": lifecycle["twin"]["launches"],
+        "launches_netstore": ring["netstore"],
+        "launches_netstore_twin": out["netstore"]["twin_launches"],
+        "launches_netha_schedulers": ring["netha"],
         "launches_headline_solve": main_launches,
         "max_abs_err": max(r["max_abs_err"]
                            for r in krows + [shard_k, resched_k]),

@@ -227,3 +227,52 @@ def lifecycle_state(store) -> dict:
                  "networkpolicies", "pvcs"):
         out[kind] = sorted((o.namespace, o.name) for o in store.list(kind))
     return out
+
+
+class Builders:
+    """tests/helpers.py's builders (same signatures, same defaults) over
+    one package's models, so a reference scenario reads the same
+    through either package."""
+
+    def __init__(self, pkg: str):
+        self.models = pkg_mod(pkg, "models")
+        self.ann_key = pkg_mod(pkg, "api").POD_GROUP_ANNOTATION
+
+    def build_pod(self, namespace: str, name: str, node_name: str,
+                  phase: str, req: Dict[str, str], group_name: str = "",
+                  labels: Optional[Dict[str, str]] = None,
+                  node_selector: Optional[Dict[str, str]] = None,
+                  priority: Optional[int] = None):
+        ann = {self.ann_key: group_name} if group_name else {}
+        return self.models.Pod(
+            name=name, namespace=namespace, node_name=node_name,
+            phase=phase, annotations=ann, labels=labels or {},
+            node_selector=node_selector or {},
+            containers=[{"requests": dict(req)}], priority=priority)
+
+    def build_node(self, name: str, alloc: Dict[str, str],
+                   labels: Optional[Dict[str, str]] = None,
+                   pods: str = "110"):
+        return build_node(self.models, name, alloc, labels, pods)
+
+    def build_pod_group(self, name: str, namespace: str = "default",
+                        min_member: int = 1, queue: str = "default",
+                        phase=None,
+                        min_resources: Optional[Dict[str, str]] = None):
+        m = self.models
+        return m.PodGroup(
+            name=name, namespace=namespace,
+            spec=m.PodGroupSpec(min_member=min_member, queue=queue,
+                                min_resources=min_resources or {}),
+            status=m.PodGroupStatus(
+                phase=phase or m.PodGroupPhase.INQUEUE))
+
+    def build_queue(self, name: str, weight: int = 1,
+                    capability: Optional[Dict[str, str]] = None,
+                    reclaimable: Optional[bool] = None,
+                    annotations: Optional[Dict[str, str]] = None):
+        m = self.models
+        return m.Queue(name=name, annotations=annotations or {},
+                       spec=m.QueueSpec(weight=weight,
+                                        capability=capability or {},
+                                        reclaimable=reclaimable))

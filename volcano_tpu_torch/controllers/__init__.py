@@ -48,8 +48,8 @@ class ControllerManager:
     behind one request at a time (pair with the store client's
     ``pool_size``).
     ``read_store=`` (the read tier: list/watch off a replica, mutations
-    to the primary) needs the networked client's ``client.readtier``,
-    which this package does not have yet: it raises
+    to the primary) needs ``client.readtier`` and the replicas behind
+    it, which this package does not have yet: it raises
     NotImplementedError before any controller is built."""
 
     def __init__(self, cluster, scheduler_name: str = "volcano",
@@ -59,7 +59,7 @@ class ControllerManager:
         if read_store is not None:
             raise NotImplementedError(
                 "ControllerManager(read_store=...) needs client.readtier, "
-                "which arrives with the networked client")
+                "which arrives with the read tier (the replicas)")
         self.opt = ControllerOption(cluster=cluster,
                                     scheduler_name=scheduler_name,
                                     default_queue=default_queue,

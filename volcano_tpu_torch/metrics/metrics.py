@@ -336,7 +336,42 @@ order_fallbacks_total = registry.register(Counter(
     "mismatch, conf_reload, key_context, session_mutations, queue_"
     "membership, comparator_only, ...)", ["reason"]))
 
-# -- resilience metrics (resilience/, scheduler containment, store fencing) -
+# -- delta watch metrics (client/codec.py delta dialect, client/remote.py) --
+
+delta_frames_total = registry.register(Counter(
+    "volcano_delta_frames_total",
+    "Wire frames received on negotiated delta watch streams (patch and "
+    "interleaved object frames alike)"))
+delta_patches_applied_total = registry.register(Counter(
+    "volcano_delta_patches_applied_total",
+    "Column-patch events applied straight onto mirrored objects (no "
+    "full-object decode)"))
+delta_fields_applied_total = registry.register(Counter(
+    "volcano_delta_fields_applied_total",
+    "Individual field writes applied by column patches"))
+delta_stream_bytes_total = registry.register(Counter(
+    "volcano_delta_stream_bytes_total",
+    "Watch-stream wire bytes by mode: delta = frames on a negotiated "
+    "delta stream, object = plain object frames — the like-for-like "
+    "bytes comparison between the two paths", ["mode"]))
+delta_decode_ms = registry.register(Gauge(
+    "volcano_delta_decode_milliseconds",
+    "Cumulative wall time resolving patch columns (table lookups + raw-"
+    "value decodes) on this client's delta streams"))
+delta_apply_ms = registry.register(Gauge(
+    "volcano_delta_apply_milliseconds",
+    "Cumulative wall time applying resolved patches (field writes + "
+    "listener dispatch) on this client's delta streams"))
+delta_vocab_size = registry.register(Gauge(
+    "volcano_delta_vocab_size",
+    "Peak interning-table size across this client's delta streams "
+    "(capped at codec.DELTA_VOCAB_MAX; overflow falls back typed)"))
+delta_fallbacks_total = registry.register(Counter(
+    "volcano_delta_fallbacks_total",
+    "Typed delta-stream fallbacks to the object path, by reason (delta_"
+    "gap, vocab_overflow, unknown_field, schema_skew)", ["reason"]))
+
+# -- resilience metrics (resilience/, scheduler containment, store client) --
 
 breaker_state = registry.register(Gauge(
     "volcano_breaker_state",
@@ -375,6 +410,86 @@ job_retry_total = registry.register(Counter(
     "volcano_job_retry_total",
     "Job controller re-enqueues after a failed sync (capped exponential "
     "backoff per job key)", ["job_id"]))
+watch_reconnects_total = registry.register(Counter(
+    "volcano_watch_reconnects_total",
+    "Watch streams resumed in place after a break", ["kind"]))
+store_request_retries_total = registry.register(Counter(
+    "volcano_store_request_retries_total",
+    "Store client requests retried after a connection failure"))
+
+# -- store admission metrics (resilience/overload.py AdmissionGate) ---------
+# the StoreServer exports these through its process's registry; the
+# retry-budget pair is CLIENT-side (RemoteClusterStore's token bucket)
+
+store_admission_inflight = registry.register(Gauge(
+    "volcano_store_admission_inflight",
+    "Requests (and held streams) currently dispatched per admission "
+    "lane; system is unbounded, the bounded lanes queue then shed",
+    ["lane"]))
+store_admission_queued = registry.register(Gauge(
+    "volcano_store_admission_queued",
+    "Requests waiting in one admission lane's bounded FIFO (granted "
+    "round-robin across client flows; shed typed when the queue fills "
+    "or the queue-wait deadline passes)", ["lane"]))
+store_admission_sheds_total = registry.register(Counter(
+    "volcano_store_admission_sheds_total",
+    "Requests shed at the admission gate, by lane and reason "
+    "(queue_full, queue_wait, deadline, streams, fault). Every shed is "
+    "a typed OverloadedError with a retry-after hint — never a hang, "
+    "never a silent drop", ["lane", "reason"]))
+store_admission_deadline_expired_total = registry.register(Counter(
+    "volcano_store_admission_deadline_expired_total",
+    "Requests rejected because their wire deadline (deadline_ms "
+    "header) had already expired on arrival or lapsed while queued — "
+    "work nobody is waiting for anymore, not worth a thread", ["lane"]))
+store_admission_retry_budget = registry.register(Gauge(
+    "volcano_store_admission_retry_budget",
+    "Client-side retry-budget token balance (refilled at ~10% of "
+    "recent request volume; each Overloaded retry spends one)"))
+store_admission_retry_budget_exhausted_total = registry.register(Counter(
+    "volcano_store_admission_retry_budget_exhausted_total",
+    "Overloaded retries refused client-side because the retry budget "
+    "was dry (typed RetryBudgetExhausted to the caller; system-lane "
+    "ops bypass the budget)"))
+
+# -- durable store metrics (client/durable.py + client/server.py) -----------
+
+store_watch_dropped_total = registry.register(Counter(
+    "volcano_store_watch_dropped_total",
+    "Slow watchers dropped by the store server (event queue overflow or "
+    "send stall past the timeout); the client resumes via its rv "
+    "high-water mark"))
+store_wal_appends_total = registry.register(Counter(
+    "volcano_store_wal_appends_total",
+    "Mutation records appended to the store write-ahead log"))
+store_wal_append_seconds = registry.register(Histogram(
+    "volcano_store_wal_append_seconds",
+    "Latency of one WAL append (encode + write + policy fsync)"))
+store_wal_fsyncs_total = registry.register(Counter(
+    "volcano_store_wal_fsyncs_total",
+    "WAL fsyncs (every commit under fsync=every, one per bulk_apply "
+    "batch, at most one per interval under fsync=interval)"))
+store_wal_size_bytes = registry.register(Gauge(
+    "volcano_store_wal_size_bytes",
+    "Bytes in the active WAL segment (resets at every snapshot "
+    "rotation)"))
+store_wal_snapshots_total = registry.register(Counter(
+    "volcano_store_wal_snapshots_total",
+    "Store snapshots written (WAL compactions)"))
+store_wal_snapshot_bytes = registry.register(Gauge(
+    "volcano_store_wal_snapshot_bytes",
+    "Size of the newest store snapshot"))
+store_wal_snapshot_timestamp = registry.register(Gauge(
+    "volcano_store_wal_snapshot_timestamp_seconds",
+    "Unix time the newest store snapshot was written (snapshot age = "
+    "now - this)"))
+store_wal_recovery_ms = registry.register(Gauge(
+    "volcano_store_wal_recovery_milliseconds",
+    "Wall time of the last store recovery (snapshot load + WAL tail "
+    "replay)"))
+store_wal_recovery_records = registry.register(Gauge(
+    "volcano_store_wal_recovery_records",
+    "WAL records replayed on top of the snapshot by the last recovery"))
 
 # -- global rescheduler metrics (reschedule/) -------------------------------
 

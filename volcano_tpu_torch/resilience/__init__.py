@@ -14,16 +14,27 @@
   reconciliation pass (wired by Scheduler.run_with_leader_election,
   fenced by client.store.FencedStore);
 - ``transient.retry_transient`` — one re-send of a dispatch that failed
-  with a transport error (never of a CUDA error).
+  with a transport error (never of a CUDA error);
+- ``overload.AdmissionGate`` — the store server's overload-protected
+  front door: priority-lane admission (system/control/bulk/read) with
+  per-client fair queuing, wire deadlines, typed ``OverloadedError``
+  sheds with retry-after hints, and the client-side ``RetryBudget``
+  (wired through client/server.py and honored by client/remote.py).
 """
 
 from .breaker import CircuitBreaker
 from .faultinject import FaultError, FaultInjector, faults
+from .overload import (
+    AdmissionGate, LaneStore, OverloadedError, RetryBudget,
+    RetryBudgetExhausted, classify, parse_lane_spec,
+)
 from .recovery import BindIntentJournal, reconcile_bind_intents
 from .transient import TRANSIENT_MARKERS, is_transient, retry_transient
 from .watchdog import ActionTimeout, ActionWatchdog
 
-__all__ = ["ActionTimeout", "ActionWatchdog", "BindIntentJournal",
-           "CircuitBreaker", "FaultError", "FaultInjector", "faults",
+__all__ = ["ActionTimeout", "ActionWatchdog", "AdmissionGate",
+           "BindIntentJournal", "CircuitBreaker", "FaultError",
+           "FaultInjector", "LaneStore", "OverloadedError", "RetryBudget",
+           "RetryBudgetExhausted", "classify", "faults", "parse_lane_spec",
            "reconcile_bind_intents", "TRANSIENT_MARKERS", "is_transient",
            "retry_transient"]

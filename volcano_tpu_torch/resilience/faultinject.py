@@ -56,6 +56,22 @@ and before the solve — the server answers with an error frame; a client
 of a CUDA server raises, a client of a CPU server falls back to the host
 loop), and ``lease_renew`` (utils/leader_election.py, between deciding to
 renew and committing the renewal).
+
+Points of the networked store (client/, resilience/overload.py), at the
+JAX package's seams: ``store_request`` (client/remote._request_once,
+before each send — an injected ConnectionError drives the retry rules),
+``watch_stream`` (the remote watch reader, per received frame — the
+stream resumes via ``since:``), ``wal_fsync`` (client/durable.py
+WriteAheadLog.sync — ``delay:`` for a slow disk, ``exc:`` for an fsync
+failure), ``store_crash`` (DurableClusterStore commit seam, after the WAL
+append and before the commit is announced — ``exc:exit`` kills the store
+with the record durable and the response never sent), ``wal_ship``
+(client/server.py ship stream, at every frame send), ``admission_shed``
+and ``request_deadline`` (AdmissionGate.admit: force a typed shed, or
+treat the request as expired on arrival), and ``delta_frame`` /
+``delta_frame_dup`` (client/server.py delta watch listener: drop or
+repeat one frame after its sequence number was consumed — the client
+refuses the next frame typed and resumes on object frames).
 """
 
 from __future__ import annotations

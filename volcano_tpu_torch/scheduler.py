@@ -117,6 +117,10 @@ class Scheduler:
         if prewarm or self.compile_cache_dir:
             _pc.watcher.install()
         self._compile_totals = _pc.watcher.session_totals()
+        # last-exported delta-watch counter snapshot (client/remote.py
+        # delta_stats accumulates forever; the registry counters get the
+        # per-export increment)
+        self._delta_totals: dict = {}
         # reschedule_* deployment flags: a positive interval opts the
         # global rescheduler in without a conf edit (load_conf appends the
         # action when the conf's actions string doesn't name it); the
@@ -348,6 +352,38 @@ class Scheduler:
             if reason:
                 metrics.order_fallbacks_total.inc(
                     labels={"reason": str(reason)})
+        # delta-watch wire accounting (client/remote.py delta_stats):
+        # patch frames applied straight onto the mirror vs object-path
+        # bytes, the decode-vs-apply ms split, and the interning-table
+        # peak — the numbers that say whether the delta negotiation is
+        # engaged and what it is saving. Fallback REASONS are counted at
+        # the fallback site itself (volcano_delta_fallbacks_total).
+        ds = getattr(getattr(self.cache, "cluster", None),
+                     "delta_stats", None)
+        if ds is not None and (ds["frames"] or ds["bytes_object"]):
+            prev = self._delta_totals
+            for key, counter in (
+                    ("frames", metrics.delta_frames_total),
+                    ("events", metrics.delta_patches_applied_total),
+                    ("fields", metrics.delta_fields_applied_total)):
+                d = ds[key] - prev.get(key, 0)
+                if d > 0:
+                    counter.inc(d)
+            for key, mode in (("bytes_delta", "delta"),
+                              ("bytes_object", "object")):
+                d = ds[key] - prev.get(key, 0)
+                if d > 0:
+                    metrics.delta_stream_bytes_total.inc(
+                        d, labels={"mode": mode})
+            metrics.delta_decode_ms.set(ds["decode_ms"])
+            metrics.delta_apply_ms.set(ds["apply_ms"])
+            metrics.delta_vocab_size.set(ds["vocab"])
+            self._delta_totals = {
+                k: ds[k] for k in ("frames", "events", "fields",
+                                   "bytes_delta", "bytes_object")}
+            timing["delta_events_applied"] = float(ds["events"])
+            timing["delta_decode_ms"] = ds["decode_ms"]
+            timing["delta_apply_ms"] = ds["apply_ms"]
         # device-resident arena accounting (ops.device_cache), exported
         # per solver mode: a sharded session's bytes land on the sharded
         # arena's series, never on the packed one. Bytes shipped per
