@@ -218,7 +218,38 @@ checkout, then, printing one JSON line per phase:
              renewal to the new leader's first bind) and the new leader's
              first cycle warm against cold: kernel library load, CUDA
              state, flatten mode, arena ship, cycle ms;
-20. the kernels line, then the result line.
+20. netshard - the scheduler on the card over the sharded, replicated
+             store: a primary process (--role shardprimary: a
+             ShardProcSupervisor of 4 worker processes, `python -m
+             volcano_tpu_torch.client.shardproc`, each a durable shard
+             fsyncing every commit, behind a ProcShardRouter) seeded
+             through the router's bulk_apply with the cycle cell already
+             bound and a gang that fits no node; replica r1 tails it (one
+             tailer a shard) and r2 tails r1 (--role replica each). This
+             process's Scheduler runs on the card over
+             SchedulerCache(ReadTierStore(primary, leaf)): binds straight to
+             the owning worker (topology direct routing), list/watch off r2
+             with the delta watch and the min_rv bound; beside the same
+             script on an in-process store (the twin). 12 waves of 10
+             gangs: at wave 4 worker 2 is SIGKILLed once the wave is
+             mirrored (its supervisor restarts it on the same port and data
+             dir while the cycle binds), at wave 8 r1 is SIGKILLed and
+             restarted on its port. Checks: every cycle's binds equal the
+             twin's, every launch held against the plain version, every
+             pod bound once (the primary's audit across both lives of the
+             worker), gangs whole, no node over its allocatable, r1's and
+             r2's lists of every kind equal the primary's at one applied rv,
+             no replica record gap, the leaf serving the scheduler's reads
+             (the primary's only PRIMARY_KINDS and counted fallbacks), each
+             worker running the port's module. Reports the seed ms, steady
+             p50 / max beside the twin's and netstore's, bind-write ms a
+             bind beside netstore's, store requests a cycle at the router,
+             each worker, r1 and r2, replica lag at each cycle's start per
+             depth, the worker kill (to READY, WAL records recovered, to
+             the next cycle's end, that cycle's flatten and arena ship) and
+             the r1 kill (to the leaf caught up, bootstraps by reason,
+             fallbacks);
+21. the kernels line, then the result line.
 
 `--phases kernel,edges` runs a subset (device and build always run) and
 then prints neither of the last two lines.
@@ -4463,9 +4494,626 @@ def phase_netha(dev, scale=None, netstore=None) -> dict:
     return out
 
 
+#: netshard: the cycle cell seeded bound (with the canary) into a primary
+#: of ``shards`` worker processes behind a ProcShardRouter (fsync on every
+#: commit), read through a depth-2 replica tree; shard worker
+#: ``kill_worker`` is SIGKILLed at wave ``kill_worker_wave``, the mid-tier
+#: replica at ``kill_replica_wave``
+NETSHARD = dict(n_nodes=CYCLE["n_nodes"], n_jobs=CYCLE["n_jobs"],
+                tasks_per_job=10, wave_jobs=10, waves=12, shards=4,
+                kill_worker=2, kill_worker_wave=4, kill_replica_wave=8)
+#: the kinds the scheduler cache watches (and netshard waits on)
+WATCHED_KINDS = ("pods", "nodes", "podgroups", "queues")
+
+
+def role_shardprimary(args) -> int:
+    """``--role shardprimary``: a ShardProcSupervisor of ``--shards``
+    worker processes (``python -m volcano_tpu_torch.client.shardproc``,
+    each a DurableClusterStore under ``--data-dir/shard-NNN``, fsync on
+    every commit) behind a ProcShardRouter on ``--port``. ``--audit
+    FILE`` appends one JSON line per committed bind (a pod update that
+    sets a node on an unbound pod), read off a direct per-worker watch
+    of this router, so it spans a worker's restart. Serves until killed;
+    its one line names the device, the address and the workers."""
+    import threading
+
+    from volcano_tpu_torch.client import (
+        ProcShardedStore, ProcShardRouter, RemoteClusterStore,
+        ShardProcSupervisor,
+    )
+    line = device_line("shardprimary")
+    sup = ShardProcSupervisor(args.shards, data_dir=args.data_dir,
+                              admission=False,
+                              restart_backoff_base_s=0.1).start()
+    server = ProcShardRouter(ProcShardedStore(sup), port=args.port).start()
+    if args.audit:
+        out = open(args.audit, "a", buffering=1)
+        audit = RemoteClusterStore(server.address, direct_watch=True,
+                                   retry_attempts=NET_RETRIES)
+
+        def on_pod(event, obj, old):
+            if event == "update" and obj.node_name \
+                    and (old is None or not old.node_name):
+                out.write(json.dumps({
+                    "t": time.time(), "ev": "bind",
+                    "pod": f"{obj.namespace}/{obj.name}",
+                    "node": obj.node_name}) + "\n")
+
+        audit.watch("pods", on_pod)
+    print(json.dumps({**line, "address": server.address,
+                      "workers": sup.topology()["workers"]}), flush=True)
+    threading.Event().wait()
+    return 0
+
+
+def role_replica(args) -> int:
+    """``--role replica``: a ReplicaStore tailing ``--upstream`` (the
+    primary, or a replica: a deeper hop of the tree), one tailer a shard,
+    served on ``--port`` once it has applied what the upstream held at
+    its start. A mirror served while it still replays sends a resuming
+    child the records the child already holds; the child meets a gap,
+    re-bootstraps behind its own watchers' marks, and they cannot resume
+    (ROADMAP Queue C). Its one line names the device, the address, the
+    depth, the bootstraps and the ms to catch up."""
+    import threading
+
+    from volcano_tpu_torch.client import ReplicaStore
+    line = device_line("replica")
+    t0 = time.perf_counter()
+    rep = ReplicaStore(args.upstream)
+    rep.start()
+    rep.wait_applied(rep._client._request({"op": "store_info"})["rv"],
+                     wait_s=CHILD_TIMEOUT_S)
+    catch_up_ms = (time.perf_counter() - t0) * 1e3
+    server = rep.serve(port=args.port)
+    print(json.dumps({**line, "address": server.address,
+                      "depth": rep.depth, "applied_rv": rep.applied_rv(),
+                      "bootstraps": dict(rep.bootstraps),
+                      "catch_up_ms": catch_up_ms}), flush=True)
+    threading.Event().wait()
+    return 0
+
+
+class PrimaryTap:
+    """The scheduler's primary client (a RemoteClusterStore on the
+    router, direct routing to the workers), counting what passes: each
+    mutation's result rv by (kind, shard), so the phase can wait until
+    the leaf's watch streams delivered every write; and every read by
+    (op, kind), so the check can hold the primary's reads to PRIMARY_KINDS
+    and the read tier's counted fallbacks."""
+
+    def __init__(self, remote, n_shards: int):
+        self.remote = remote
+        self.n_shards = n_shards
+        self.written: dict = {}
+        self.reads: dict = {}
+
+    def _note(self, kind: str, obj) -> None:
+        from volcano_tpu_torch.client import shard_for
+        from volcano_tpu_torch.client.store import _key
+        if obj is None or isinstance(obj, Exception):
+            return
+        sh = str(shard_for(kind, _key(obj), self.n_shards))
+        marks = self.written.setdefault(kind, {})
+        marks[sh] = max(marks.get(sh, 0), int(obj.resource_version))
+
+    def _read(self, op: str, kind: str) -> None:
+        self.reads[(op, kind)] = self.reads.get((op, kind), 0) + 1
+
+    def create(self, kind, obj, fencing=None):
+        out = self.remote.create(kind, obj, fencing=fencing)
+        self._note(kind, out)
+        return out
+
+    def update(self, kind, obj, fencing=None):
+        out = self.remote.update(kind, obj, fencing=fencing)
+        self._note(kind, out)
+        return out
+
+    def apply(self, kind, obj, fencing=None):
+        out = self.remote.apply(kind, obj, fencing=fencing)
+        self._note(kind, out)
+        return out
+
+    def bulk_apply(self, items, fencing=None, **kw):
+        out = self.remote.bulk_apply(items, fencing=fencing, **kw)
+        for (kind, *_), obj in zip(items, out):
+            self._note(kind, obj)
+        return out
+
+    def get(self, kind, name, namespace=None, **kw):
+        self._read("get", kind)
+        return self.remote.get(kind, name, namespace, **kw)
+
+    def list(self, kind, *a, **kw):
+        self._read("list", kind)
+        return self.remote.list(kind, *a, **kw)
+
+    def watch(self, kind, *a, **kw):
+        self._read("watch", kind)
+        return self.remote.watch(kind, *a, **kw)
+
+    def bulk_watch(self, subs, **kw):
+        for kind, _ in subs:
+            self._read("watch", kind)
+        return self.remote.bulk_watch(subs, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self.remote, name)
+
+    def settle(self, leaf, timeout: float = 60.0) -> None:
+        """Wait until ``leaf``'s streams delivered every write made here
+        of a kind the cache watches (the cache's mirror holds it)."""
+        for kind in WATCHED_KINDS:
+            marks = self.written.get(kind)
+            if marks and not leaf.wait_stream_applied(kind, dict(marks),
+                                                      timeout=timeout):
+                raise AssertionError(
+                    f"the leaf's {kind} watch did not reach {marks} in "
+                    f"{timeout} s (at {leaf._kind_hwm.get(kind)}; stream "
+                    f"resumes {leaf.watch_resumes}, failed "
+                    f"{leaf.watch_failed}; the leaf: "
+                    f"{_info(f'{leaf.host}:{leaf.port}', 'replica_info')})")
+
+
+def tree_twin(dev, leaf, cache, seed) -> tuple:
+    """The in-process twin of a scheduler fed by ``leaf``: a ClusterStore
+    holding ``seed`` ([queues and nodes, podgroups, pods]) with the pods
+    in the leaf's order, and the port's Scheduler on ``dev`` over it. The
+    cache subscribes to pods before nodes, so each node takes its place in
+    the mirror at its first bound pod, and the leaf replays the pods shard
+    by shard; the order of the nodes breaks ties between equal scores.
+    Raises unless the twin's nodes stand in the order of ``cache``'s."""
+    from volcano_tpu_torch.client import ClusterStore
+    order = {f"{p.namespace}/{p.name}": i
+             for i, p in enumerate(leaf.list("pods"))}
+    store = ClusterStore()
+    for items in seed[:2] + [sorted(seed[2], key=lambda ko: order[
+            f"{ko[1].namespace}/{ko[1].name}"])]:
+        feed(store, items, False)
+    twin_cache, twin = net_scheduler(dev, store)
+    if list(twin_cache.nodes) != list(cache.nodes):
+        raise AssertionError("the twin's nodes are not in the mirror's "
+                             "order")
+    return store, twin_cache, twin
+
+
+def feed_tree(tap, leaf, twin_store, groups) -> None:
+    """Each group of [(kind, obj)] through the primary (``tap``) and into
+    the twin, a group at a time, each in the leaf's mirror before the next
+    (a pod ahead of its podgroup would place the job)."""
+    for items in groups:
+        tap.bulk_apply([(k, o, "create") for k, o in items])
+        tap.settle(leaf)
+        feed(twin_store, items, False)
+
+
+def _info(address: str, op: str) -> dict:
+    """One ``op`` request to ``address`` on a fresh router-only client."""
+    from volcano_tpu_torch.client import RemoteClusterStore
+    c = RemoteClusterStore(address, direct_routing=False,
+                           retry_attempts=NET_RETRIES)
+    try:
+        return c._request({"op": op})
+    finally:
+        c.close()
+
+
+def _rv_covers(have, want) -> bool:
+    return all(int(have.get(sh, -1)) >= int(rv) for sh, rv in want.items())
+
+
+def _pct(vals, q: float):
+    if not vals:
+        return None
+    vals = sorted(vals)
+    return vals[min(len(vals) - 1, int(round(q / 100.0 * (len(vals) - 1))))]
+
+
+class Endpoints:
+    """Per-cycle store requests at each endpoint of the tree (its
+    ``store_info`` counters by op; the probes' own ``store_info`` and the
+    supervisor's liveness polls left out by dropping that op)."""
+
+    def __init__(self, named: dict):
+        self.named = named  # name -> address (router first)
+
+    def read(self) -> dict:
+        out = {}
+        # workers before the router: the router's store_info fans out to
+        # every worker
+        for name in sorted(self.named, key=lambda n: n == "router"):
+            out[name] = dict(_info(self.named[name], "store_info")
+                             .get("requests", {}))
+        return out
+
+    @staticmethod
+    def delta(before: dict, after: dict) -> dict:
+        out = {}
+        for name, reqs in after.items():
+            d = {op: n - before.get(name, {}).get(op, 0)
+                 for op, n in reqs.items() if op != "store_info"}
+            out[name] = {op: n for op, n in d.items() if n}
+        return out
+
+
+def replica_lag(address: str) -> dict:
+    """One replica's lag: records summed over its shards, seconds the
+    largest shard's (``replica_info``)."""
+    info = _info(address, "replica_info")
+    per = info.get("per_shard") or {}
+    recs = [v.get("lag_records") for v in per.values()]
+    secs = [v.get("lag_seconds") for v in per.values()]
+    return {"records": None if None in recs else sum(recs),
+            "seconds": None if None in secs else max(secs),
+            "bootstraps": dict(info.get("bootstraps") or {}),
+            "depth": info.get("depth")}
+
+
+def tree_lists(primary_addr: str, replicas: dict) -> dict:
+    """Every kind listed on the primary and on each replica at the same
+    applied rv, encoded and compared (the bench's ``tree_ok``): the
+    primary's rv read once the writes stopped, each replica's list asked
+    at ``min_rv`` of it and its own stamp required equal."""
+    from volcano_tpu_torch.client import RemoteClusterStore
+    from volcano_tpu_torch.client.codec import encode
+    from volcano_tpu_torch.client.store import KINDS
+    prv = _info(primary_addr, "store_info")["rv"]
+    clients = {name: RemoteClusterStore(a, direct_routing=False,
+                                        retry_attempts=NET_RETRIES)
+               for name, a in [("primary", primary_addr),
+                               *replicas.items()]}
+    try:
+        counts = {}
+        for kind in KINDS:
+            objs, stamp = clients["primary"].list_versioned(kind)
+            if stamp != prv:
+                raise AssertionError(f"the primary moved during the tree "
+                                     f"check: {stamp} != {prv}")
+            want = sorted(json.dumps(encode(o), sort_keys=True)
+                          for o in objs)
+            for name in replicas:
+                got, applied = clients[name].list_versioned(
+                    kind, min_rv=prv, wait_s=60.0)
+                if applied != prv:
+                    raise AssertionError(f"{name} answered {kind} at "
+                                         f"{applied}, not {prv}")
+                if sorted(json.dumps(encode(o), sort_keys=True)
+                          for o in got) != want:
+                    raise AssertionError(f"{name}'s {kind} differ from the "
+                                         f"primary's at rv {prv}")
+            counts[kind] = len(want)
+        return {"applied_rv": prv, "objects": counts, "tree_ok": True}
+    finally:
+        for c in clients.values():
+            c.close()
+
+
+def phase_netshard(dev, scale=None, netstore=None) -> dict:
+    """The scheduler on the card over the sharded, replicated store: a
+    primary process (``--role shardprimary``: 4 shard-worker processes,
+    fsync on every commit, behind a ProcShardRouter) seeded through the
+    router's bulk_apply with the cycle cell already bound plus a gang
+    that fits no node (every cycle solves); replica r1 tails it and r2
+    tails r1 (``--role replica``, a process each). This process's
+    Scheduler runs on the card over SchedulerCache(ReadTierStore(primary,
+    leaf)): binds direct to the owning worker, list/watch off r2 (delta
+    watch), read-your-writes by min_rv; beside the same script on an
+    in-process store (the twin). 12 waves of 10 gangs; at
+    ``kill_worker_wave`` worker 2 is SIGKILLed once the wave is mirrored
+    (its supervisor restarts it on the same port and data dir while the
+    cycle binds), at ``kill_replica_wave`` r1 is SIGKILLed and restarted
+    on its port. Checks: every cycle's binds equal the twin's, every
+    launch held against the plain version, every pod bound once (the
+    primary's audit across both lives of worker 2), gangs whole, no node
+    over its allocatable, r1's and r2's lists of every kind equal the
+    primary's at one applied rv, no replica gap, the leaf serving the
+    reads and the primary only PRIMARY_KINDS and counted fallbacks."""
+    import tempfile
+    import threading
+
+    from volcano_tpu_torch.client import ReadTierStore, RemoteClusterStore
+    from volcano_tpu_torch.client.readtier import PRIMARY_KINDS
+    t_phase = time.perf_counter()
+    sc = dict(NETSHARD, **(scale or {}))
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="netshard-",
+                           dir=os.path.join(REPO, "build"))
+    audit_path = os.path.join(tmp, "audit.jsonl")
+    prim = Child("shardprimary", [
+        "--role", "shardprimary", "--data-dir", os.path.join(tmp, "data"),
+        "--shards", str(sc["shards"]), "--audit", audit_path])
+    children = [prim]
+    clients = []
+    try:
+        pline = prim.first()
+        addr = pline["address"]
+        for w in pline["workers"]:
+            with open(f"/proc/{w['pid']}/cmdline", "rb") as f:
+                argv = f.read().split(b"\0")
+            if b"volcano_tpu_torch.client.shardproc" not in argv:
+                raise AssertionError(f"shard worker {w['shard']} does not "
+                                     f"run the port's module: {argv}")
+        primary = RemoteClusterStore(addr, retry_attempts=NET_RETRIES)
+        clients.append(primary)
+        tap = PrimaryTap(primary, sc["shards"])
+        cell = NetCell(sc["n_nodes"], sc["tasks_per_job"])
+        pgs, pods, _ = cell.gangs_objs(sc["n_jobs"], bound_on=sc["n_nodes"])
+        canary = cell.canary()
+        seed = [cell.base, pgs + canary[:1], pods + canary[1:]]
+        # the seed through the router: one bulk_apply a kind group, split
+        # per shard and fsynced by the workers in parallel
+        t0 = time.perf_counter()
+        for items in seed:
+            res = primary.bulk_apply([(k, o, "create") for k, o in items],
+                                     ack=True)
+            bad = [r for r in res if isinstance(r, Exception)]
+            if bad:
+                raise AssertionError(f"the seed refused {len(bad)}: "
+                                     f"{bad[0]}")
+        seed_ms = (time.perf_counter() - t0) * 1e3
+        seeded_rv = _info(addr, "store_info")["rv"]
+        # the tree: r1 tails the primary, r2 tails r1
+        r1 = Child("r1", ["--role", "replica", "--upstream", addr,
+                          "--port", "0"])
+        children.append(r1)
+        r1addr = r1.first()["address"]
+        r2 = Child("r2", ["--role", "replica", "--upstream", r1addr,
+                          "--port", "0"])
+        children.append(r2)
+        r2line = r2.first()
+        r2addr = r2line["address"]
+        t0 = time.perf_counter()
+        while not _rv_covers(_info(r2addr, "store_info")["rv"], seeded_rv):
+            if time.perf_counter() - t0 > CHILD_TIMEOUT_S:
+                raise AssertionError("the replica tree did not catch up "
+                                     "with the seed")
+            time.sleep(0.05)
+        leaf = RemoteClusterStore(r2addr, delta_watch=True,
+                                  direct_routing=False,
+                                  retry_attempts=NET_RETRIES)
+        clients.append(leaf)
+        rts = ReadTierStore(tap, leaf)
+        t0 = time.perf_counter()
+        cache, sched = net_scheduler(dev, rts)
+        mirror_sync_ms = (time.perf_counter() - t0) * 1e3
+        twin_store, twin_cache, twin = tree_twin(dev, leaf, cache, seed)
+        ends = Endpoints({"router": addr, "r1": r1addr, "r2": r2addr,
+                          **{f"worker{w['shard']}": w["endpoint"]
+                             for w in pline["workers"]}})
+        rows, twin_rows, lags = [], [], {1: [], 2: []}
+        kill_worker, kill_replica = {}, {}
+
+        def cycle(what, keys, pre_kill=None):
+            tap.settle(leaf)
+            if pre_kill is not None:
+                pre_kill()
+            lag = {d: replica_lag(a) for d, a in ((1, ends.named["r1"]),
+                                                  (2, r2addr))} \
+                if pre_kill is None else {}
+            for d, v in lag.items():
+                lags[d].append(v)
+            before = ends.read() if pre_kill is None else None
+            with KernelAudit() as kaudit:
+                row = net_cycle(sched, what)
+            row["t_end"] = time.perf_counter()
+            if before is not None:
+                row["store_requests"] = Endpoints.delta(before, ends.read())
+            row["audit"] = kaudit.summary()
+            if row["audit"]["launches_checked"] != row["launches"]:
+                raise AssertionError(f"{what}: {row['launches']} launches, "
+                                     f"{row['audit']} checked")
+            trow = net_cycle(twin, what)
+            mine = {k: cache.binder.nodes.get(k) for k in keys}
+            theirs = {k: twin_cache.binder.nodes.get(k) for k in keys}
+            if mine != theirs or None in mine.values():
+                diff = [k for k in keys if mine[k] != theirs[k]]
+                raise AssertionError(f"{what}: {len(diff)} binds differ "
+                                     f"from the in-process twin or are "
+                                     f"missing: {diff[:5]}")
+            rows.append(row)
+            twin_rows.append(trow)
+            return row
+
+        def kill_the_worker():
+            k = sc["kill_worker"]
+            w0 = _info(addr, "topology")["workers"][k]
+            poll = RemoteClusterStore(addr, direct_routing=False,
+                                      retry_attempts=NET_RETRIES)
+            clients.append(poll)
+            kill_worker.update(shard=k, pid=w0["pid"])
+            kill_worker["t_kill"] = time.perf_counter()
+            os.kill(w0["pid"], 9)
+
+            def watch_ready():
+                while time.perf_counter() - kill_worker["t_kill"] < 60:
+                    w = poll._request({"op": "topology"})["workers"][k]
+                    if w["alive"] and w["restarts"] > w0["restarts"]:
+                        kill_worker["kill_to_ready_ms"] = (
+                            time.perf_counter()
+                            - kill_worker["t_kill"]) * 1e3
+                        kill_worker["new_pid"] = w["pid"]
+                        return
+                    time.sleep(0.01)
+
+            th = threading.Thread(target=watch_ready, daemon=True)
+            th.start()
+            kill_worker["thread"] = th
+
+        def kill_the_replica():
+            kill_replica["before"] = replica_lag(r2addr)["bootstraps"]
+            kill_replica["fallbacks_before"] = rts.read_fallbacks
+            port = int(ends.named["r1"].rpartition(":")[2])
+            kill_replica["t_kill"] = time.perf_counter()
+            children[1].kill()
+            children[1] = Child("r1", ["--role", "replica", "--upstream",
+                                       addr, "--port", str(port)])
+
+        cycle("settle", [])
+        for i in range(sc["waves"]):
+            pgs, pods, names = cell.gangs_objs(sc["wave_jobs"])
+            feed_tree(tap, leaf, twin_store, (pgs, pods))
+            keys = [k for g in names for k in cell.gangs[g]]
+            if i == sc["kill_worker_wave"]:
+                row = cycle(f"wave {i}", keys, kill_the_worker)
+                kill_worker.pop("thread").join(timeout=60)
+                if "kill_to_ready_ms" not in kill_worker:
+                    raise AssertionError("the killed shard worker did not "
+                                         "come back in 60 s")
+                k = sc["kill_worker"]
+                info = _info(pline["workers"][k]["endpoint"], "store_info")
+                kill_worker.update(
+                    recovered_records=info.get("recovered"),
+                    kill_to_next_cycle_end_ms=(
+                        row["t_end"] - kill_worker.pop("t_kill")) * 1e3,
+                    first_cycle={x: row.get(x) for x in (
+                        "cycle_ms", "flatten_mode", "arena_full_ship",
+                        "arena_bytes_shipped", "binds", "bind_write_ms")})
+            elif i == sc["kill_replica_wave"]:
+                row = cycle(f"wave {i}", keys, kill_the_replica)
+                r1line = children[1].first()
+                tap.settle(leaf)
+                kill_replica.update(
+                    caught_up_ms=(time.perf_counter()
+                                  - kill_replica.pop("t_kill")) * 1e3,
+                    restarted_bootstraps=r1line["bootstraps"],
+                    restarted_catch_up_ms=r1line["catch_up_ms"],
+                    leaf_bootstraps={
+                        r: n - kill_replica["before"].get(r, 0)
+                        for r, n in replica_lag(r2addr)["bootstraps"]
+                        .items() if n - kill_replica["before"].get(r, 0)},
+                    fallbacks=rts.read_fallbacks
+                    - kill_replica.pop("fallbacks_before"),
+                    cycle={x: row.get(x) for x in (
+                        "cycle_ms", "flatten_mode", "binds",
+                        "bind_write_ms")})
+                kill_replica.pop("before")
+            else:
+                cycle(f"wave {i}", keys)
+        tap.settle(leaf)
+        # the audit: every wave pod bound once, across both lives of the
+        # killed worker; the store's pods equal the binds
+        binds = store_pod_binds(primary)
+        wave_binds = dict(cache.binder.nodes)
+        if any(binds.get(k) != n for k, n in wave_binds.items()):
+            raise AssertionError("the primary's pods differ from the binds "
+                                 "the scheduler wrote")
+        t0 = time.perf_counter()
+        while True:
+            per_pod: dict = {}
+            for rec in read_audit(audit_path):
+                if rec["ev"] == "bind":
+                    per_pod[rec["pod"]] = per_pod.get(rec["pod"], 0) + 1
+            if set(per_pod) >= set(wave_binds) \
+                    or time.perf_counter() - t0 > 30:
+                break
+            time.sleep(0.1)
+        dups = {k: n for k, n in per_pod.items() if n != 1}
+        if dups or set(per_pod) != set(wave_binds) \
+                or max(cache.binder.count.values()) != 1:
+            raise AssertionError(f"pods bound more than once or unaudited: "
+                                 f"{list(dups)[:5]}, "
+                                 f"{len(per_pod)} audited of "
+                                 f"{len(wave_binds)}")
+        cell.check("netshard", binds)
+        tree = tree_lists(addr, {"r1": ends.named["r1"], "r2": r2addr})
+        boots = {name: replica_lag(a)["bootstraps"]
+                 for name, a in (("r1", ends.named["r1"]), ("r2", r2addr))}
+        if any(b.get("apply_gap") for b in boots.values()):
+            raise AssertionError(f"a replica met a record gap: {boots}")
+        # the leaf served the reads; the primary saw only PRIMARY_KINDS
+        # and the counted fallbacks
+        stray = {f"{op} {kind}": n for (op, kind), n in tap.reads.items()
+                 if kind not in PRIMARY_KINDS}
+        if rts.reads_replica <= 0 or any(op.startswith("watch")
+                                         for op in stray) \
+                or sum(stray.values()) != rts.read_fallbacks:
+            raise AssertionError(
+                f"the scheduler read the primary past the read tier: "
+                f"{stray}, fallbacks {rts.read_fallbacks}, replica reads "
+                f"{rts.reads_replica}")
+        skip = {sc["kill_worker_wave"] + 1, sc["kill_replica_wave"] + 1}
+        steady = [r for i, r in enumerate(rows) if i and i not in skip]
+        tsteady = [r for i, r in enumerate(twin_rows) if i and i not in skip]
+        wave_rows = rows[1:]
+        reqs = {}
+        for r in steady:
+            for name, d in r["store_requests"].items():
+                reqs.setdefault(name, []).append(sum(d.values()))
+        ns_steady = None
+        ns_bind = None
+        if netstore:
+            ns_steady = netstore["steady_p50_ms"]
+            # its steady waves: past the first after the burst, the store
+            # restart's left out
+            ns_w = [r for i, r in enumerate(netstore["waves"])
+                    if i not in (0, netstore["restart_wave"])]
+            ns_bind = sum(r["bind_write_ms"] for r in ns_w) \
+                / max(sum(r["binds"] for r in ns_w), 1)
+        bound = [r for r in wave_rows if r["binds"]]
+        out = {
+            "phase": "netshard", "nodes": sc["n_nodes"],
+            "shards": sc["shards"], "pods_bound": len(binds),
+            "wave_binds": len(wave_binds), "twin_equal": True, "lost": 0,
+            "duplicates": 0, "seed_objects": sum(len(x) for x in seed),
+            "seed_ms": seed_ms, "mirror_sync_ms": mirror_sync_ms,
+            "steady_p50_ms": statistics.median(r["cycle_ms"]
+                                               for r in steady),
+            "steady_max_ms": max(r["cycle_ms"] for r in steady),
+            "twin_steady_p50_ms": statistics.median(r["cycle_ms"]
+                                                    for r in tsteady),
+            "twin_steady_max_ms": max(r["cycle_ms"] for r in tsteady),
+            "netstore_steady_p50_ms": ns_steady,
+            "bind_write_ms_per_bind": sum(r["bind_write_ms"]
+                                          for r in bound)
+            / max(sum(r["binds"] for r in bound), 1),
+            "netstore_bind_write_ms_per_bind": ns_bind,
+            "direct_requests": primary.direct_requests,
+            "direct_fallbacks": primary.direct_fallbacks,
+            "store_requests_per_cycle_p50": {
+                name: statistics.median(v) for name, v in reqs.items()},
+            "store_requests_by_op": [r["store_requests"] for r in steady],
+            "lag_at_cycle_start": {
+                f"depth{d}": {
+                    "records_p50": _pct([x["records"] for x in v
+                                         if x["records"] is not None], 50),
+                    "records_p99": _pct([x["records"] for x in v
+                                         if x["records"] is not None], 99),
+                    "seconds_p50": _pct([x["seconds"] for x in v
+                                         if x["seconds"] is not None], 50),
+                    "seconds_p99": _pct([x["seconds"] for x in v
+                                         if x["seconds"] is not None], 99),
+                    "samples": len(v)} for d, v in lags.items()},
+            "reads_replica": rts.reads_replica,
+            "read_fallbacks": rts.read_fallbacks,
+            "primary_reads": {f"{op} {kind}": n
+                              for (op, kind), n in tap.reads.items()},
+            "worker_kill": {**kill_worker,
+                            "wave": sc["kill_worker_wave"]},
+            "replica_kill": {**kill_replica,
+                             "wave": sc["kill_replica_wave"]},
+            "bootstraps": boots, "tree": tree,
+            "waves": [{k: v for k, v in r.items()
+                       if k not in ("t_end", "store_requests")}
+                      for r in wave_rows],
+            "launches": sum(r["launches"] for r in rows),
+            "twin_launches": sum(r["launches"] for r in twin_rows),
+            "seconds": time.perf_counter() - t_phase}
+        emit(out)
+        return out
+    finally:
+        for client in clients:
+            client.close()
+        for child in children:
+            child.kill()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 PHASES = ("kernel", "edges", "small", "solve", "profile", "cycle", "hdrf",
           "evict", "sequential", "sharded", "reschedule", "prewarm",
-          "sidecar", "failover", "lifecycle", "netstore", "netha")
+          "sidecar", "failover", "lifecycle", "netstore", "netha",
+          "netshard")
 
 
 def main() -> int:
@@ -4482,9 +5130,11 @@ def main() -> int:
                     help="run one arm of the prewarm phase in this process "
                          "and print its JSON (the prewarm phase starts "
                          "each arm this way)")
-    ap.add_argument("--role", choices=("store", "scheduler"),
-                    help="run as a child of the netstore / netha phases "
-                         "(role_store, role_scheduler)")
+    ap.add_argument("--role", choices=("store", "scheduler",
+                                       "shardprimary", "replica"),
+                    help="run as a child of the netstore / netha / "
+                         "netshard phases (role_store, role_scheduler, "
+                         "role_shardprimary, role_replica)")
     ap.add_argument("--data-dir")
     ap.add_argument("--port", type=int, default=0)
     ap.add_argument("--seed", choices=("bound",))
@@ -4498,6 +5148,8 @@ def main() -> int:
     ap.add_argument("--retry", type=float, default=0.25)
     ap.add_argument("--period", type=float, default=0.25)
     ap.add_argument("--cold-standby", action="store_true")
+    ap.add_argument("--shards", type=int, default=4)
+    ap.add_argument("--upstream")
     args = ap.parse_args()
     if os.environ.get("PYTHONHASHSEED") != "0":
         # the netha phase compares decisions across processes: this
@@ -4516,6 +5168,10 @@ def main() -> int:
         return role_store(args)
     if args.role == "scheduler":
         return role_scheduler(args)
+    if args.role == "shardprimary":
+        return role_shardprimary(args)
+    if args.role == "replica":
+        return role_replica(args)
     if args.prewarm_arm:
         print(json.dumps(prewarm_arm(dev, args.prewarm_arm == "on",
                                      PREWARM)), flush=True)
@@ -4543,6 +5199,9 @@ def main() -> int:
     if "netha" in phases:
         out["netha"] = run("netha", phase_netha, dev, None,
                            out.get("netstore"))
+    if "netshard" in phases:
+        out["netshard"] = run("netshard", phase_netshard, dev, None,
+                              out.get("netstore"))
     emit({"phase": "seconds", **seconds})
     if set(phases) != set(PHASES):
         return 0
@@ -4560,9 +5219,10 @@ def main() -> int:
     # count read before and after each request) and the failover's
     # leader, shadow, standby and cold-twin cycles, and the lifecycle's
     # cycles (its twin's counted apart), the netstore scheduler's cycles
-    # over the wire (its in-process twin's apart) and the netha scheduler
+    # over the wire (its in-process twin's apart), the netha scheduler
     # processes' leader and shadow cycles (each child counts from 0 at its
-    # start and reports its total), each counted from 0 (the sequential
+    # start and reports its total) and the netshard scheduler's cycles over
+    # the read tier (its twin's apart), each counted from 0 (the sequential
     # mode launches no kernel)
     cycle_rows = [cyc["burst"]] + cyc["steady"]
     evict_launches = sum(r["launches"] + r["next_cycle_launches"]
@@ -4580,7 +5240,8 @@ def main() -> int:
             "failover": failover["launches"],
             "lifecycle": lifecycle["launches"],
             "netstore": out["netstore"]["launches"],
-            "netha": out["netha"]["launches"]}
+            "netha": out["netha"]["launches"],
+            "netshard": out["netshard"]["launches"]}
     if min(ring.values()) <= 0:
         raise AssertionError(f"a path of the outer ring, the lifecycle or "
                              f"the network launched no kernel: {ring}")
@@ -4612,6 +5273,8 @@ def main() -> int:
         "launches_netstore": ring["netstore"],
         "launches_netstore_twin": out["netstore"]["twin_launches"],
         "launches_netha_schedulers": ring["netha"],
+        "launches_netshard": ring["netshard"],
+        "launches_netshard_twin": out["netshard"]["twin_launches"],
         "launches_headline_solve": main_launches,
         "max_abs_err": max(r["max_abs_err"]
                            for r in krows + [shard_k, resched_k]),

@@ -263,11 +263,22 @@ def free_port() -> int:
     return port
 
 
-def start_store_proc(port: int, data_dir: str,
-                     timeout: float = 60.0) -> subprocess.Popen:
-    """This file's ``store`` entry; waits for its READY line."""
-    proc = _child("store", "--port", str(port), "--data-dir", data_dir,
-                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+def start_store_proc(port: int, data_dir: str, timeout: float = 60.0,
+                     shards: int = 1, shard_procs: bool = False,
+                     worker_faults=None, fsync: str = "every",
+                     snapshot_every: int = 4096) -> subprocess.Popen:
+    """This file's ``store`` entry; waits for its READY line.
+    ``shards`` > 1 serves a ShardedClusterStore through a ShardRouter;
+    ``shard_procs`` runs each shard as a worker process behind a
+    ProcShardRouter (the same data-dir layout)."""
+    argv = ["store", "--port", str(port), "--data-dir", data_dir,
+            "--shards", str(shards), "--fsync", fsync,
+            "--snapshot-every", str(snapshot_every)]
+    if shard_procs:
+        argv.append("--shard-procs")
+    if worker_faults:
+        argv += ["--worker-faults", worker_faults]
+    proc = _child(*argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                   text=True)
     deadline = time.time() + timeout
     while time.time() < deadline:
@@ -282,12 +293,18 @@ def start_store_proc(port: int, data_dir: str,
 
 def run_store_crash_soak(data_dir: str, waves: int = 6, kill_at_wave=None,
                          jobs_per_wave: int = 2, tpj: int = 3,
-                         n_nodes: int = 4, wait_s: float = 30.0) -> dict:
+                         n_nodes: int = 4, wait_s: float = 30.0,
+                         shards: int = 1, bulk_watch: bool = False,
+                         shard_procs: bool = False, kill_worker=None,
+                         direct_watch: bool = False) -> dict:
     """tests/durable_soak.py's run through the port (device="cpu"): per
     wave, Jobs -> the controllers' podgroups -> enqueue -> the pods ->
     one binding cycle -> retire; ``kill_at_wave=k`` SIGKILLs and
     restarts the store process once wave k's pods exist only in the
-    store. Returns the decision trace and the ride-through evidence."""
+    store. ``shards``/``shard_procs`` serve the store sharded (in one
+    process or one worker process a shard); ``kill_worker=i`` aims the
+    SIGKILL at shard i's worker and waits for its supervisor's restart.
+    Returns the decision trace and the ride-through evidence."""
     from torch_helpers import Builders
     from volcano_tpu_torch.cache import FakeEvictor, SchedulerCache
     from volcano_tpu_torch.client import NotFoundError, RemoteClusterStore
@@ -301,11 +318,13 @@ def run_store_crash_soak(data_dir: str, waves: int = 6, kill_at_wave=None,
 
     b = Builders("torch")
     port = free_port()
-    proc = start_store_proc(port, data_dir)
+    proc = start_store_proc(port, data_dir, shards=shards,
+                            shard_procs=shard_procs)
     crash_resyncs = []
     remote = RemoteClusterStore(
         f"127.0.0.1:{port}", connect_timeout=2.0, retry_attempts=10,
         retry_base_s=0.1, retry_cap_s=1.0, watch_backoff_cap_s=0.5,
+        direct_watch=direct_watch,
         on_watch_failure=lambda: crash_resyncs.append(1))
     result = {"binds_by_wave": [], "crashes": 0, "stalls": [],
               "restart_s": None}
@@ -341,7 +360,8 @@ def run_store_crash_soak(data_dir: str, waves: int = 6, kill_at_wave=None,
         cache.evictor = FakeEvictor()
         cache.run()
         cache.wait_for_cache_sync()
-        controllers = ControllerManager(remote, default_queue="q0")
+        controllers = ControllerManager(remote, default_queue="q0",
+                                        bulk_watch=bulk_watch)
         controllers.run()
         sched = Scheduler(cache)
         jc = next(c for c in controllers.controllers
@@ -382,9 +402,27 @@ def run_store_crash_soak(data_dir: str, waves: int = 6, kill_at_wave=None,
             if kill_at_wave == w:
                 # the whole wave exists only in the store: kill -9
                 t0 = time.time()
-                proc.kill()
-                proc.wait(timeout=10)
-                proc = start_store_proc(port, data_dir)
+                if kill_worker is not None:
+                    # one shard worker only: its supervisor restarts it
+                    # on the same port and data dir, the others serve on
+                    topo = remote._request({"op": "topology"})
+                    victim = topo["workers"][kill_worker]
+                    os.kill(victim["pid"], signal.SIGKILL)
+                    deadline = time.time() + 30
+                    while time.time() < deadline:
+                        topo = remote._request({"op": "topology"})
+                        ww = topo["workers"][kill_worker]
+                        if ww["alive"] and ww["restarts"] \
+                                > victim["restarts"]:
+                            break
+                        time.sleep(0.05)
+                    result["worker_restarts"] = \
+                        topo["workers"][kill_worker]["restarts"]
+                else:
+                    proc.kill()
+                    proc.wait(timeout=10)
+                    proc = start_store_proc(port, data_dir, shards=shards,
+                                            shard_procs=shard_procs)
                 result["restart_s"] = round(time.time() - t0, 2)
 
             def mirror_has_wave(name):
@@ -527,13 +565,35 @@ def scheduler_main(args) -> int:
 
 
 def store_main(args) -> int:
-    """A DurableClusterStore served by a StoreServer on ``--port``;
-    prints READY once serving, then serves until killed."""
-    from volcano_tpu_torch.client import DurableClusterStore, StoreServer
-    store = DurableClusterStore(args.data_dir)
-    server = StoreServer(store, port=args.port).start()
+    """A DurableClusterStore served by a StoreServer on ``--port`` (or,
+    with ``--shards``/``--shard-procs``, a sharded store behind its
+    router over the same data dir); prints READY once serving, then
+    serves until killed."""
+    from volcano_tpu_torch.client import (
+        DurableClusterStore, ProcShardedStore, ProcShardRouter,
+        ShardedClusterStore, ShardProcSupervisor, ShardRouter,
+        StoreServer,
+    )
+    if args.shard_procs:
+        sup = ShardProcSupervisor(
+            max(1, args.shards), data_dir=args.data_dir, fsync=args.fsync,
+            snapshot_every=args.snapshot_every, admission=False,
+            worker_faults=args.worker_faults,
+            restart_backoff_base_s=0.1).start()
+        store = ProcShardedStore(sup)
+        server = ProcShardRouter(store, port=args.port).start()
+    elif args.shards > 1:
+        store = ShardedClusterStore(args.shards, data_dir=args.data_dir,
+                                    fsync=args.fsync,
+                                    snapshot_every=args.snapshot_every)
+        server = ShardRouter(store, port=args.port).start()
+    else:
+        store = DurableClusterStore(args.data_dir, fsync=args.fsync,
+                                    snapshot_every=args.snapshot_every)
+        server = StoreServer(store, port=args.port).start()
     print(f"READY {server.port} rv={store._rv} "
-          f"recovered={store.recovered_records}", flush=True)
+          f"recovered={getattr(store, 'recovered_records', 0)}",
+          flush=True)
     threading.Event().wait()
     return 0
 
@@ -599,6 +659,12 @@ if __name__ == "__main__":
     st = sub.add_parser("store")
     st.add_argument("--port", type=int, required=True)
     st.add_argument("--data-dir", required=True)
+    st.add_argument("--shards", type=int, default=1)
+    st.add_argument("--fsync", default="every",
+                    choices=["every", "interval", "off"])
+    st.add_argument("--snapshot-every", type=int, default=4096)
+    st.add_argument("--shard-procs", action="store_true")
+    st.add_argument("--worker-faults", default=None)
     fw = sub.add_parser("fenced-writer")
     fw.add_argument("--server", required=True)
     fw.add_argument("--identity", required=True)

@@ -4,8 +4,9 @@ client/server.py and client/remote.py), on the CPU.
 
 - The cases of tests/test_overload.py through the port (gate units,
   the retry budget, live-server typed sheds, retry discipline and wire
-  compatibility, the metric families) but for TestShardedAndProc and
-  the vcctl tables, which wait for the sharded store and the CLI.
+  compatibility, the metric families, TestShardedAndProc's gated
+  router and per-worker gates) but for the vcctl tables, which wait for
+  the CLI.
 - One scripted sequence of admissions through both packages' gates
   under a fake clock: the same grants, sheds, reasons, retry-after
   hints and lane tables, step by step.
@@ -529,6 +530,64 @@ class TestMetricsExposition:
 # ---------------------------------------------------------------------------
 # both packages' gates, one scripted sequence
 # ---------------------------------------------------------------------------
+
+class TestShardedAndProc:
+    def test_sharded_router_gated(self):
+        from volcano_tpu_torch.client import ShardedClusterStore, ShardRouter
+        store = ShardedClusterStore(4)
+        router = ShardRouter(store).start()
+        client = fast_client(f"127.0.0.1:{router.port}",
+                             retry_attempts=0)
+        try:
+            client.create("queues", build_queue("q1"))
+            info = client.admission_info()
+            assert info["enabled"]
+            faults.arm("admission_shed", every=1)
+            with pytest.raises(OverloadedError):
+                client.list("queues")
+            faults.reset()
+            assert [q.name for q in client.list("queues")] == ["q1"]
+        finally:
+            faults.reset()
+            client.close()
+            router.stop()
+
+    def test_worker_gates_shed_independently(self, tmp_path):
+        # each shard WORKER owns its own gate (one hot shard sheds
+        # alone): an expired-deadline request against worker 1 is
+        # refused typed there and counted in ITS table only; the
+        # router's admission_info aggregates every worker's table
+        from volcano_tpu_torch.client import (
+            ProcShardRouter, ProcShardedStore, ShardProcSupervisor,
+        )
+        sup = ShardProcSupervisor(
+            2, data_dir=str(tmp_path), fsync="off", admission=False,
+            admission_lanes="read=1:4").start()
+        store = ProcShardedStore(sup)
+        router = ProcShardRouter(store, port=0).start()
+        client = fast_client(f"127.0.0.1:{router.port}",
+                             retry_attempts=0, direct_routing=False)
+        try:
+            r0 = sup.request(0, {"op": "ping"})
+            assert r0["ok"]
+            r1 = sup.request(1, {"op": "ping", "deadline_ms": -1})
+            assert r1["ok"] is False
+            assert r1["error"] == "OverloadedError"
+            assert r1.get("reason") == "deadline"
+            info = client.admission_info()
+            assert info["enabled"]
+            workers = info["workers"]
+            assert set(workers) == {"0", "1"}
+            assert workers["1"]["read"]["deadline_expired"] >= 1
+            assert workers["0"]["read"]["sheds"] == 0
+            # the lane spec reached every worker's own gate
+            assert workers["0"]["read"]["max_inflight"] == 1
+            assert workers["1"]["read"]["max_inflight"] == 1
+        finally:
+            client.close()
+            router.stop()
+            sup.stop()
+
 
 class FakeClock:
     """Advances ``step`` seconds at every reading: a queued request's

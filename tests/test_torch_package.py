@@ -10,6 +10,7 @@
 
 from __future__ import annotations
 
+import json
 import os
 import pkgutil
 import re
@@ -51,7 +52,8 @@ def test_import_leaves_jax_and_the_jax_package_out():
     assert "volcano_tpu_torch.webhooks.jobs" in mods
     for mod in ("resilience.overload", "client.codec", "client.durable",
                 "client.server", "client.remote", "metrics.server",
-                "webhooks.server"):
+                "webhooks.server", "client.sharded", "client.shardproc",
+                "client.replica", "client.readtier"):
         assert f"volcano_tpu_torch.{mod}" in mods
     code = (
         "import importlib, sys\n"
@@ -149,11 +151,12 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
 
 
 def test_read_store_raises_before_any_controller_is_built(monkeypatch):
-    """The read tier needs client.readtier and the replicas, not ported
-    yet: the manager refuses it up front instead of building controllers
-    over a plain store."""
+    """The read tier (client.readtier) is ported: ``read_store=`` no
+    longer raises; the manager builds its five controllers over a
+    ReadTierStore whose writes go to the primary and reads to the
+    replica, and without it over the plain store."""
     import volcano_tpu_torch.controllers as ctl
-    from volcano_tpu_torch.client import ClusterStore
+    from volcano_tpu_torch.client import ClusterStore, ReadTierStore
     built = []
 
     class Spy:
@@ -166,12 +169,79 @@ def test_read_store_raises_before_any_controller_is_built(monkeypatch):
     for name in ("JobController", "QueueController", "PodGroupController",
                  "KubeletStandin", "GarbageCollector"):
         monkeypatch.setattr(ctl, name, Spy)
-    with pytest.raises(NotImplementedError, match="read tier"):
-        ctl.ControllerManager(ClusterStore(), read_store=ClusterStore())
-    assert built == []
-    # without it the same manager builds all five
-    ctl.ControllerManager(ClusterStore())
+    primary, replica = ClusterStore(), ClusterStore()
+    cm = ctl.ControllerManager(primary, read_store=replica)
     assert len(built) == 5
+    tier = cm.opt.cluster
+    assert isinstance(tier, ReadTierStore)
+    assert tier.write_store is primary and tier.read_store is replica
+    cm = ctl.ControllerManager(ClusterStore())
+    assert len(built) == 10 and not isinstance(cm.opt.cluster,
+                                               ReadTierStore)
+
+
+#: a sitecustomize for the processes of one test: records each process's
+#: pid, and refuses (and records) any import of jax or the JAX package
+REFUSE_JAX = """
+import os, sys
+LOG = os.environ["PORT_IMPORT_LOG"]
+open(os.path.join(LOG, f"pid-{os.getpid()}"), "w").close()
+
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "volcano_tpu"):
+            open(os.path.join(LOG, f"bad-{os.getpid()}-{name}"), "w").close()
+            raise ImportError(f"refused: {name}")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+"""
+
+
+def test_shard_workers_run_the_port_without_jax(tmp_path):
+    """The supervisor spawns ``python -m volcano_tpu_torch.client.shardproc``
+    (each worker's /proc/PID/cmdline), and a worker never imports jax or
+    the JAX package: every process of the run starts under an import hook
+    that refuses them, and the workers serve through it."""
+    hook, log = tmp_path / "hook", tmp_path / "log"
+    hook.mkdir()
+    log.mkdir()
+    (hook / "sitecustomize.py").write_text(REFUSE_JAX)
+    code = (
+        "import json, sys\n"
+        "from volcano_tpu_torch.client import (ProcShardRouter, "
+        "ProcShardedStore, RemoteClusterStore, ShardProcSupervisor)\n"
+        "from volcano_tpu_torch.models import Pod\n"
+        f"sup = ShardProcSupervisor(2, data_dir={str(tmp_path / 'd')!r}, "
+        "fsync='off').start()\n"
+        "router = ProcShardRouter(ProcShardedStore(sup), port=0).start()\n"
+        "c = RemoteClusterStore(f'127.0.0.1:{router.port}')\n"
+        "for i in range(8):\n"
+        "    c.create('pods', Pod(name=f'p{i}', namespace='ns'))\n"
+        "pids = [w.pid for w in sup.workers]\n"
+        "argv = [open(f'/proc/{p}/cmdline', 'rb').read().decode()"
+        ".split(chr(0)) for p in pids]\n"
+        "print(json.dumps({'pids': pids, 'argv': argv, 'alive': "
+        "[w.alive for w in sup.workers], 'pods': len(c.list('pods')), "
+        "'mods': [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'volcano_tpu')]}))\n"
+        "c.close(); router.stop(); sup.stop()\n")
+    env = dict(os.environ, PYTHONPATH=f"{hook}{os.pathsep}{REPO}",
+               PORT_IMPORT_LOG=str(log))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["alive"] == [True, True] and out["pods"] == 8
+    assert out["mods"] == []
+    for pid, argv in zip(out["pids"], out["argv"]):
+        assert argv[1:3] == ["-m", "volcano_tpu_torch.client.shardproc"]
+        assert (log / f"pid-{pid}").exists()  # the hook ran in the worker
+    assert sorted(p.name for p in log.iterdir()
+                  if p.name.startswith("bad-")) == []
 
 
 def test_solver_option_errors():

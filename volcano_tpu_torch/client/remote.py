@@ -18,9 +18,9 @@ re-raise client-side as the same classes — which is what makes the lease
 CAS of utils.leader_election work across processes.
 
 The wire is the JAX package's: this client talks to either package's
-StoreServer. The topology and read-tier branches route to sharded
-workers and read replicas when a server announces them; this package's
-own StoreServer announces none.
+StoreServer, router, shard worker and replica. The topology and
+read-tier branches route to sharded workers and read replicas when a
+server announces them (client/sharded.py, shardproc.py, replica.py).
 """
 
 from __future__ import annotations

@@ -88,11 +88,12 @@ def applied_rv_of(store) -> object:
 
 def _ship_source(store, shard) -> "ClusterStore":
     """Resolve a ship/bootstrap request to the store that owns the WAL
-    lineage: the store itself, or — behind a sharded store — the
-    requested member shard. Only a durable store (disk segments + live
-    tail) qualifies; a plain in-memory store has no lineage to ship and
-    refuses. The replicas that call this op are not in this package
-    yet; the op stays so the wire answers as the JAX package's does."""
+    lineage: the store itself, or — behind a ShardRouter — the requested
+    member shard. Any ``ship_capable`` store qualifies: the durable
+    primary (disk segments + live tail) or a replica's mirror shard
+    (bounded re-ship ring + live tail) — fan-out trees hang replicas
+    off replicas through exactly this seam. A plain in-memory store has
+    no lineage to ship and refuses."""
     shards = getattr(store, "shards", None)
     idx = int(shard or 0)
     if shards is None:
@@ -104,7 +105,8 @@ def _ship_source(store, shard) -> "ClusterStore":
             raise RuntimeError(
                 f"shard {idx} out of range (store has {len(shards)})")
         target = store._shard(idx)  # ShardUnavailableError when down
-    if getattr(target, "data_dir", None) is None:
+    if (getattr(target, "data_dir", None) is None
+            and not getattr(target, "ship_capable", False)):
         raise RuntimeError(
             "replica bootstrap/ship requires a durable primary "
             "(--store-data-dir): an in-memory store has no WAL to ship")
@@ -919,7 +921,13 @@ class _Handler(socketserver.BaseRequestHandler):
         at every frame send (arm ``exc:`` to drop the link mid-segment,
         ``exc:exit`` to SIGKILL the primary there); the replica's
         record-continuity check is the backstop for anything this stream
-        could lose."""
+        could lose.
+
+        A REPLICA serving this op (fan-out trees) replays from its
+        mirror shard's re-ship ring instead of disk segments, fires the
+        ``ship_relay`` fault point instead of ``wal_ship``, and counts
+        the absorbed traffic in its ``ship_served`` ledger — same
+        protocol, same lock-hold no-gap guarantee, different source."""
         from .durable import _segment_paths, read_frames
         try:
             src = _ship_source(store, req.get("shard"))
@@ -929,6 +937,19 @@ class _Handler(socketserver.BaseRequestHandler):
                               "error": name if name in _ERRORS
                               else "RuntimeError", "message": str(e)})
             return
+        fault_point = getattr(self.server, "ship_fault_point", "wal_ship")
+        replica = getattr(self.server, "replica", None)
+
+        def account(n: int) -> None:
+            if replica is None:
+                return
+            replica.ship_served["records"] += n
+            try:
+                from ..metrics import metrics as _m
+                _m.replica_ship_served_records_total.inc(n)
+            except Exception:  # noqa: BLE001 — accounting only
+                pass
+
         since_rv = int(req.get("since_rv", 0))
         events: "queue.Queue" = queue.Queue(maxsize=WATCH_QUEUE_MAX)
         overflowed = threading.Event()
@@ -955,17 +976,28 @@ class _Handler(socketserver.BaseRequestHandler):
             # segments, every record > live_from arrives via the hook —
             # no record can fall between disk replay and live tail
             live_from = src._rv
-            segments = _segment_paths(src.data_dir)
+            if getattr(src, "data_dir", None) is not None:
+                segments = _segment_paths(src.data_dir)
+                pending: Optional[list] = None
+            else:
+                # mirror ship source: the bounded re-ship ring stands in
+                # for disk segments, captured under the SAME lock hold
+                segments = []
+                pending = src.ship_records(since_rv, live_from)
             src.add_ship_listener(on_record)
+        if replica is not None:
+            replica.ship_served["streams"] += 1
+            replica._ship_stream_delta(1)
         try:
             send_frame(sock, {"ok": True, "rv": live_from})
             batch: list = []
 
             def flush() -> None:
                 if batch:
-                    faults.fire("wal_ship")
+                    faults.fire(fault_point)
                     send_frame(sock, {"stream": "wal", "recs": batch,
                                       "prv": live_from})
+                    account(len(batch))
                     del batch[:]
 
             for path in segments:
@@ -975,6 +1007,10 @@ class _Handler(socketserver.BaseRequestHandler):
                         batch.append(rec)
                         if len(batch) >= SHIP_BATCH_MAX:
                             flush()
+            for rec in pending or ():
+                batch.append(rec)
+                if len(batch) >= SHIP_BATCH_MAX:
+                    flush()
             flush()
             send_frame(sock, {"stream": "ship_synced", "rv": live_from})
             while not overflowed.is_set():
@@ -993,9 +1029,10 @@ class _Handler(socketserver.BaseRequestHandler):
                         recs.append(events.get_nowait())
                     except queue.Empty:
                         break
-                faults.fire("wal_ship")
+                faults.fire(fault_point)
                 send_frame(sock, {"stream": "wal", "recs": recs,
                                   "prv": src._rv})
+                account(len(recs))
             log.warning("ship stream overflowed %d records; dropping the "
                         "slow replica (it resumes at its applied rv)",
                         WATCH_QUEUE_MAX)
@@ -1006,6 +1043,8 @@ class _Handler(socketserver.BaseRequestHandler):
             pass  # replica went away; it resumes from its applied rv
         finally:
             src.remove_ship_listener(on_record)
+            if replica is not None:
+                replica._ship_stream_delta(-1)
 
 
 class StoreServer:

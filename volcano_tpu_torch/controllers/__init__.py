@@ -47,19 +47,19 @@ class ControllerManager:
     pod-wave ingest overlaps store round trips instead of queueing
     behind one request at a time (pair with the store client's
     ``pool_size``).
-    ``read_store=`` (the read tier: list/watch off a replica, mutations
-    to the primary) needs ``client.readtier`` and the replicas behind
-    it, which this package does not have yet: it raises
-    NotImplementedError before any controller is built."""
+    ``read_store=`` moves the controllers onto the read tier:
+    list/watch/bulk_watch are served by that replica surface while
+    every mutation keeps flowing to ``cluster`` (the primary, fencing
+    untouched), with read-your-writes held via the min_rv bound — see
+    client.readtier.ReadTierStore."""
 
     def __init__(self, cluster, scheduler_name: str = "volcano",
                  default_queue: str = "default", worker_num: int = 3,
                  shard_workers: int = 1, bulk_watch: bool = False,
                  read_store=None):
         if read_store is not None:
-            raise NotImplementedError(
-                "ControllerManager(read_store=...) needs client.readtier, "
-                "which arrives with the read tier (the replicas)")
+            from ..client.readtier import ReadTierStore
+            cluster = ReadTierStore(cluster, read_store)
         self.opt = ControllerOption(cluster=cluster,
                                     scheduler_name=scheduler_name,
                                     default_queue=default_queue,

@@ -491,6 +491,107 @@ store_wal_recovery_records = registry.register(Gauge(
     "volcano_store_wal_recovery_records",
     "WAL records replayed on top of the snapshot by the last recovery"))
 
+# -- sharded store metrics (client/sharded.py) ------------------------------
+# the volcano_store_wal_* family above additionally carries a
+# shard=<idx> label when the WAL belongs to a sharded member store
+
+store_shard_events_total = registry.register(Counter(
+    "volcano_store_shard_events_total",
+    "Events committed per store shard (rate = per-shard events/sec)",
+    ["shard"]))
+store_shard_journal_window = registry.register(Gauge(
+    "volcano_store_shard_journal_window",
+    "Events currently replayable from one shard's watch-resume journal "
+    "(the span of its since: window, sampled every 64 commits)",
+    ["shard"]))
+store_shard_watch_queue_depth = registry.register(Gauge(
+    "volcano_store_shard_watch_queue_depth",
+    "Events from one shard sitting in router watch queues, not yet on "
+    "the wire (sustained growth = a slow watcher about to be dropped)",
+    ["shard"]))
+store_shard_dropped_total = registry.register(Counter(
+    "volcano_store_shard_dropped_events_total",
+    "Events discarded per shard when a condemned (overflowed/stalled) "
+    "watch stream was dropped", ["shard"]))
+
+# -- multi-process shard workers (client/shardproc.py) ----------------------
+# set by the ShardProcSupervisor in the router process
+
+store_shard_worker_up = registry.register(Gauge(
+    "volcano_store_shard_worker_up",
+    "1 when the shard's worker process is alive and serving, 0 while "
+    "it is down/restarting (its ops contained with "
+    "ShardUnavailableError)", ["shard"]))
+store_shard_worker_pid = registry.register(Gauge(
+    "volcano_store_shard_worker_pid",
+    "OS pid of the shard's worker process", ["shard"]))
+store_shard_worker_restarts_total = registry.register(Counter(
+    "volcano_store_shard_worker_restarts_total",
+    "Times the supervisor restarted this shard's worker process "
+    "(capped-exponential-backoff respawn on the same port + data dir)",
+    ["shard"]))
+store_shard_worker_uptime_seconds = registry.register(Gauge(
+    "volcano_store_shard_worker_uptime_seconds",
+    "Seconds since the shard's worker process last came READY "
+    "(0 while down)", ["shard"]))
+store_shard_ingest_events_per_sec = registry.register(Gauge(
+    "volcano_store_shard_ingest_events_per_sec",
+    "Committed mutations per second on this shard's worker, sampled "
+    "from its rv progression by the supervisor's liveness polls",
+    ["shard"]))
+
+# -- read replica metrics (client/replica.py) -------------------------------
+
+replica_applied_rv = registry.register(Gauge(
+    "volcano_replica_applied_rv",
+    "Primary resource_version this replica's mirror reflects, per "
+    "shipped WAL lineage (shard '0' for an unsharded primary)",
+    ["shard"]))
+replica_lag_records = registry.register(Gauge(
+    "volcano_replica_lag_records",
+    "WAL records the primary has committed that this replica has not "
+    "yet applied (primary rv seen on the ship stream - applied rv)",
+    ["shard"]))
+replica_lag_seconds = registry.register(Gauge(
+    "volcano_replica_lag_seconds",
+    "Age of the replica's applied state while it lags (now - the WAL "
+    "commit stamp of the last applied record; 0 when caught up)",
+    ["shard"]))
+replica_bootstraps_total = registry.register(Counter(
+    "volcano_replica_bootstraps_total",
+    "Replica snapshot bootstraps by reason: initial (startup), "
+    "out_of_window (fell past the primary's retained-segment window), "
+    "apply_gap (rv discontinuity detected — a lost or duplicated "
+    "shipped record). Every hole ends here, never in a silent skip",
+    ["reason"]))
+replica_ship_bytes_total = registry.register(Counter(
+    "volcano_replica_ship_bytes_total",
+    "Wire bytes received on the WAL ship stream(s)", ["shard"]))
+replica_watchers = registry.register(Gauge(
+    "volcano_replica_watchers",
+    "Watch/bulk_watch streams currently served by this replica"))
+replica_upstream_depth = registry.register(Gauge(
+    "volcano_replica_upstream_depth",
+    "This replica's depth in the fan-out tree: 1 tails the primary "
+    "directly, N tails a depth-(N-1) replica"))
+replica_upstream_rv = registry.register(Gauge(
+    "volcano_replica_upstream_rv",
+    "Newest upstream resource_version seen on this replica's ship "
+    "stream(s), per lineage — the rv its lag is measured against",
+    ["shard"]))
+replica_ship_served_streams = registry.register(Gauge(
+    "volcano_replica_ship_served_streams",
+    "Downstream ship streams this replica is currently re-serving "
+    "(its children in the fan-out tree)"))
+replica_ship_served_records_total = registry.register(Counter(
+    "volcano_replica_ship_served_records_total",
+    "WAL records this replica relayed to downstream replicas — "
+    "traffic the primary never saw"))
+replica_ship_served_bootstraps_total = registry.register(Counter(
+    "volcano_replica_ship_served_bootstraps_total",
+    "Bootstrap requests this replica answered from its own mirror "
+    "state (mid-tree re-bootstraps that never touched the primary)"))
+
 # -- global rescheduler metrics (reschedule/) -------------------------------
 
 reschedule_plans_total = registry.register(Counter(

@@ -563,7 +563,12 @@ class Scheduler:
             LeaseLock,
         )
 
-        store = self.cache.cluster
+        # a read-tiered cache cluster (client.readtier.ReadTierStore)
+        # still arbitrates its lease — and replays the dead leader's
+        # intents — against the PRIMARY: takeover truth never rides a
+        # replica's staleness
+        store = getattr(self.cache.cluster, "write_store",
+                        self.cache.cluster)
         elector = LeaderElector(
             LeaseLock(store, lock_name), identity=identity,
             lease_duration=lease_duration or LEASE_DURATION,
