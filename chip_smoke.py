@@ -249,7 +249,42 @@ checkout, then, printing one JSON line per phase:
              the next cycle's end, that cycle's flatten and arena ship) and
              the r1 kill (to the leaf caught up, bootstraps by reason,
              fallbacks);
-21. the kernels line, then the result line.
+21. sim    - the simulator (volcano_tpu_torch.sim) on bench.py
+             sim_quality()'s workload, not cut (seed 123, 500 cycles and
+             a drain of 100, 22 nodes of 32 cpu, 6710 pods): each arm a
+             child process (--role simarm) at once — solver, sharded and
+             host on the card, solver and the sharded arm's first 100
+             cycles on the plain route (device="cpu"), and bench.py
+             reschedule_defrag()'s A/B (the fragmented preset) on the card
+             and on the plain route — beside a `python -m
+             volcano_tpu_torch.cli sim` child checked against run_sim in
+             process, then verify on the card (--role simverify) while
+             the standalone phase runs. Checks: the card's solver trace
+             equal to the plain route's byte for byte, verify passing, the
+             sharded trace equal to the plain route's prefix, each
+             fragmented arm equal to the plain route's with the rescheduler
+             within its budget and caps. Per arm: the score (wait mean /
+             p99, utilization, Jain fairness, churn), wall s, the first
+             cycle's ms, the full-ship cycles' and the p50 / max of the
+             rest, launches; the reference's defrag trio and the cycle
+             where the solver and sharded arms part (the round cap) are
+             reported;
+22. standalone - the control plane in one process: (a) Standalone on the
+             card at the cycle cell's scale (2000 nodes, 20 of them with
+             GPU cards), 1000 vcjobs as YAML through apply_job_yaml with
+             20 required-affinity, 20 PVC and 20 shared-GPU jobs above and
+             below their priority, turned until every job runs, then 12
+             waves of 10 vcjobs and one host-only job while 10 jobs
+             finish; beside a CPU twin (--role standalonetwin) bind for
+             bind, turn by turn; per turn the controllers' and the cycle's
+             ms, the timing keys, the host-only jobs bound before and after
+             the device solve, launches; (b) `python -m
+             volcano_tpu_torch.standalone --serve-store` on the card with
+             example/mpi-job.yaml, example/tensorflow-job.yaml and a
+             generated job through `python -m volcano_tpu_torch.cli`,
+             every pod bound, `job list` and `status` over the wire, exit 0
+             on SIGTERM;
+23. the kernels line, then the result line.
 
 `--phases kernel,edges` runs a subset (device and build always run) and
 then prints neither of the last two lines.
@@ -5110,10 +5145,935 @@ def phase_netshard(dev, scale=None, netstore=None) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- the simulator (sim/), vcctl and the standalone control plane -----------
+
+#: bench.py sim_quality()'s workload, not cut: seed 123, 500 cycles and a
+#: drain of 100, 22 nodes of 32 cpu, 4.0 arrivals a cycle, gangs of 2-5,
+#: durations 5-40, queues 1:2:3 (6710 pods)
+SIM = dict(seed=123, cycles=500, drain=100, nodes=22, node_cpu="32",
+           arrival_rate=4.0, gang_min=2, gang_max=5, duration_min=5,
+           duration_max=40, queues=(("q0", 1), ("q1", 2), ("q2", 3)))
+#: bench.py reschedule_defrag()'s A/B: the fragmented preset, 500 cycles on
+#: 9 nodes, seed 7, a defrag pass every 5 cycles, 8 moves, 2 a job, the
+#: binpack conf in both arms
+SIM_FRAG = dict(seed=7, cycles=500, nodes=9,
+                knobs={"interval": 5, "max_moves": 8,
+                       "max_disruption_per_job": 2})
+#: the vcctl sim child: `vcctl sim` at these flags against run_sim in
+#: process on the same arguments
+SIM_CLI = dict(cycles=100, seed=123, nodes=22, rate=4.0)
+SIM_SCORE_KEYS = ("wait_mean", "wait_p99", "utilization_mean",
+                  "jfi_queues", "preemption_churn", "pods_bound",
+                  "jobs_completed")
+
+
+def sim_workload(sc):
+    from volcano_tpu_torch.sim import Workload, WorkloadSpec
+    return Workload(WorkloadSpec(**{k: sc[k] for k in (
+        "seed", "cycles", "nodes", "node_cpu", "arrival_rate", "gang_min",
+        "gang_max", "duration_min", "duration_max", "queues")}))
+
+
+class SimTicks:
+    """Times every VirtualCluster.tick run inside it (the entry points
+    stay run_sim / verify) and reads each cycle's launches and timing:
+    the first cycle (the kernel library's load), the cycles that shipped
+    the whole arena (a new layout bucket) and the delta cycles past
+    them, apart. Fails on a cycle that left the device path."""
+
+    def __enter__(self):
+        from volcano_tpu_torch.ops import fused_choice as fc
+        from volcano_tpu_torch.sim import virtualcluster as vcm
+        self._vcm, self._fc = vcm, fc
+        self._orig = vcm.VirtualCluster.tick
+        self.rows = []
+        orig, rows = self._orig, self.rows
+
+        def tick(vc):
+            before = fc.fused_choice.launches
+            t0 = time.perf_counter()
+            line = orig(vc)
+            t = vc.sched.last_cycle_timing
+            rows.append({"ms": (time.perf_counter() - t0) * 1e3,
+                         "launches": fc.fused_choice.launches - before,
+                         "full_ship": float(t.get("arena_full_ship", 0.0)),
+                         "error": t.get("allocate_error"),
+                         "fallback": t.get("host_fallback")})
+            return line
+
+        vcm.VirtualCluster.tick = tick
+        return self
+
+    def __exit__(self, *exc):
+        self._vcm.VirtualCluster.tick = self._orig
+
+    def summary(self, on_card: bool) -> dict:
+        rows = self.rows
+        bad = [r for r in rows if r["error"] or r["fallback"]]
+        if on_card and bad:
+            raise AssertionError(f"a sim cycle left the device path: "
+                                 f"{bad[0]}")
+        steady = [r["ms"] for r in rows[1:] if not r["full_ship"]]
+        ships = [r["ms"] for r in rows[1:] if r["full_ship"]]
+        return {"cycles": len(rows),
+                "launches": sum(r["launches"] for r in rows),
+                "first_cycle_ms": rows[0]["ms"] if rows else None,
+                "full_ship_cycles": len(ships),
+                "full_ship_ms_max": max(ships, default=None),
+                "cycle_ms_p50": statistics.median(steady)
+                if steady else None,
+                "cycle_ms_max": max(steady, default=None)}
+
+
+def sim_arm(dev, arm: str, mode: str, cycles=None, record=None,
+            golden=None) -> dict:
+    """One arm of the sim phase through run_sim (or verify against
+    ``golden``, a trace path) on ``dev``, over SIM's workload, for SIM's
+    cycles and drain or the first ``cycles`` cycles: its score, digest,
+    wall s, cycle times and launches, counted from 0 at its start."""
+    from volcano_tpu_torch.ops import fused_choice as fc
+    from volcano_tpu_torch.sim import run_sim, verify
+    sc = SIM if cycles is None else dict(SIM, cycles=cycles, drain=0)
+    wl = sim_workload(SIM)
+    on_card = torch.device(dev).type == "cuda"
+    fc.fused_choice.launches = 0
+    t0 = time.perf_counter()
+    with SimTicks() as ticks:
+        if golden is not None:
+            res = verify(golden, workload=wl, cycles=sc["cycles"],
+                         mode=mode, drain=sc["drain"], device=dev)
+            out = {"verify_ok": res["ok"], "digest": res["digest"],
+                   "divergence": res["divergence"]}
+        else:
+            r = run_sim(workload=wl, cycles=sc["cycles"], mode=mode,
+                        drain=sc["drain"], device=dev, record_path=record)
+            out = {"digest": r.digest,
+                   "score": {k: r.score[k] for k in SIM_SCORE_KEYS},
+                   "conservation_balanced":
+                       r.vc.conservation()["balanced"]}
+    launches = fc.fused_choice.launches
+    row = {"phase": "sim", "arm": arm, "mode": mode,
+           "device": str(torch.device(dev)), "pods": wl.total_pods,
+           **out, "wall_s": time.perf_counter() - t0,
+           **ticks.summary(on_card)}
+    if row["launches"] != launches:
+        raise AssertionError(f"sim {arm}: a launch escaped the cycles")
+    if on_card and mode != "host" and launches <= 0:
+        raise AssertionError(f"sim {arm}: no kernel launch on the card")
+    return row
+
+
+def sim_frag(dev) -> dict:
+    """bench.py reschedule_defrag()'s A/B on ``dev``: the golden arm (no
+    rescheduler) and the reschedule arm on the fragmented preset, both on
+    the binpack conf. Checks that the rescheduler migrated, kept every
+    plan within the move budget and the per-job cap, and executed only
+    plans that project a fragmentation improvement; reports the
+    reference's trio (utilization up, fragmentation down, wait p99 no
+    worse) and each arm's digest, which phase_sim holds to the plain
+    route's. The trio is reported, not required: on this workload the
+    JAX package misses it too (its reschedule arm raises the
+    fragmentation index and the wait p99), so it is no property of the
+    code both packages share."""
+    from volcano_tpu_torch.ops import fused_choice as fc
+    from volcano_tpu_torch.sim import run_sim
+    from volcano_tpu_torch.sim.virtualcluster import BINPACK_CONF
+    from volcano_tpu_torch.sim.workload import fragmented_workload
+    sc, knobs = SIM_FRAG, SIM_FRAG["knobs"]
+    out, runs = {"phase": "sim", "arm": "fragmented"}, {}
+    fc.fused_choice.launches = 0
+    for arm, resched in (("golden", None), ("reschedule", knobs)):
+        t0 = time.perf_counter()
+        with SimTicks() as ticks:
+            runs[arm] = run_sim(
+                workload=fragmented_workload(seed=sc["seed"],
+                                             cycles=sc["cycles"],
+                                             nodes=sc["nodes"]),
+                cycles=sc["cycles"], scheduler_conf=BINPACK_CONF,
+                reschedule=resched, device=dev)
+        s = runs[arm].score
+        out[arm] = {"wall_s": time.perf_counter() - t0,
+                    **{k: s[k] for k in (
+                        "utilization_mean", "fragmentation_index",
+                        "wait_p99", "migrations", "migration_churn")},
+                    **ticks.summary(torch.device(dev).type == "cuda")}
+    g, r = runs["golden"].score, runs["reschedule"].score
+    plans = runs["reschedule"].vc.cache.reschedule_log
+    executed = [p for p in plans if p["rejected"] is None]
+    out["plans"] = {"built": len(plans), "executed": len(executed),
+                    "moves_executed": int(sum(p["executed"]
+                                              for p in executed))}
+    out["trio"] = {
+        "utilization_up": r["utilization_mean"] > g["utilization_mean"],
+        "fragmentation_down": r["fragmentation_index"]
+        < g["fragmentation_index"],
+        "wait_p99_no_worse": r["wait_p99"] <= g["wait_p99"]}
+    out["bounds"] = {
+        "budget_respected": all(p["selected"] <= knobs["max_moves"]
+                                for p in plans),
+        "caps_respected": all(p["max_disruption"]
+                              <= knobs["max_disruption_per_job"]
+                              for p in plans),
+        "executed_plans_improve": all(p["frag_after"] < p["frag_before"]
+                                      for p in executed),
+        "migrated": r["migrations"] > 0}
+    out["digests"] = {arm: runs[arm].digest for arm in runs}
+    out["launches"] = fc.fused_choice.launches
+    if not all(out["bounds"].values()):
+        raise AssertionError(f"the fragmented A/B's rescheduler broke a "
+                             f"bound on {dev}: {out}")
+    return out
+
+
+#: the arms of the sim phase that run as children: mode, device ("card"
+#: or the plain route's "cpu") and cycles (None: SIM's, with its drain).
+#: The plain route's sharded solve takes ~1.5 s a cycle on the host, so
+#: its arm covers the first 100 cycles, which the card's sharded arm must
+#: reproduce (a cycle's record depends only on the events before it)
+SIM_ARMS = {"solver": ("solver", "card", None),
+            "sharded": ("sharded", "card", None),
+            "host": ("host", "card", None),
+            "solver_cpu": ("solver", "cpu", None),
+            "sharded_cpu": ("sharded", "cpu", 100),
+            "fragmented": (None, "card", None),
+            "fragmented_cpu": (None, "cpu", None)}
+
+
+def role_simarm(args) -> int:
+    """``--role simarm --arm NAME``: one arm of the sim phase (SIM_ARMS)
+    in its own process, its trace under ``--data-dir``; one JSON line."""
+    torch.set_num_threads(1)
+    line = device_line("simarm", arm=args.arm)
+    print(json.dumps(line), flush=True)
+    mode, where, cycles = SIM_ARMS[args.arm]
+    dev = torch.device("cuda", 0) if where == "card" else "cpu"
+    if mode is None:
+        out = sim_frag(dev)
+    else:
+        out = sim_arm(dev, args.arm, mode, cycles=cycles,
+                      record=os.path.join(args.data_dir,
+                                          f"{args.arm}.jsonl"))
+    print(json.dumps({"arm_done": args.arm, **out}), flush=True)
+    return 0
+
+
+def sim_cli_child(dev) -> dict:
+    """``python -m volcano_tpu_torch.cli sim`` on the card (no --device:
+    the CUDA device) beside run_sim in process on the same arguments:
+    the same digest."""
+    from volcano_tpu_torch.ops import fused_choice as fc
+    from volcano_tpu_torch.sim import WorkloadSpec, run_sim
+    c = SIM_CLI
+    argv = [sys.executable, "-m", "volcano_tpu_torch.cli", "sim",
+            "--cycles", str(c["cycles"]), "--seed", str(c["seed"]),
+            "--nodes", str(c["nodes"]), "--rate", str(c["rate"]),
+            "--mode", "solver"]
+    env = dict(os.environ, PYTHONHASHSEED="0")
+    proc = subprocess.Popen(argv, cwd=REPO, env=env, text=True,
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT)
+    fc.fused_choice.launches = 0
+    r = run_sim(spec=WorkloadSpec(seed=c["seed"], cycles=c["cycles"],
+                                  nodes=c["nodes"],
+                                  arrival_rate=c["rate"]),
+                cycles=c["cycles"], mode="solver", device=dev)
+    launches = fc.fused_choice.launches
+    out, _ = proc.communicate(timeout=CHILD_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"vcctl sim exited {proc.returncode}:\n"
+                             + out[-3000:])
+    got = [ln.split()[-1] for ln in out.splitlines()
+           if ln.startswith("digest: ")]
+    if got != [r.digest]:
+        raise AssertionError(f"vcctl sim's digest {got} != run_sim's "
+                             f"{r.digest}")
+    return {"phase": "sim", "arm": "vcctl_child", "argv": argv[1:],
+            "digest": r.digest, "identical_to_in_process": True,
+            "in_process_launches": launches}
+
+
+class SimPhase:
+    """The simulator on the card, in two halves so that the standalone
+    phase runs while the card verifies the trace. ``start``: every arm of
+    SIM_ARMS a child process at once; meanwhile this process runs the
+    vcctl child beside its in-process twin, waits for the plain route's
+    solver trace (the first to finish), then starts verify of it on the
+    card as one more child (``--role simverify``). ``finish``: waits for
+    every child and checks that the card's solver trace equals the plain
+    route's byte for byte (so verify on the card replays the card's own
+    recorded trace), that verify passed, the card's sharded trace the
+    plain route's sharded prefix and each fragmented arm the plain
+    route's. The solver and sharded arms' digests are reported side by
+    side, not required equal: at this load the solve reaches its 64-round
+    cap, and the sharded solve spends rounds differently (every phase at
+    least one round), in the JAX package as in the port."""
+
+    def __init__(self, dev):
+        import tempfile
+        self.dev = dev
+        os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+        self.tmp = tempfile.mkdtemp(prefix="sim-",
+                                    dir=os.path.join(REPO, "build"))
+        self.children: dict = {}
+        self.got: dict = {}
+
+    def _child(self, arm: str, role: str = "simarm") -> None:
+        self.children[arm] = Child(f"sim-{arm}", [
+            "--role", role, "--arm", arm, "--data-dir", self.tmp])
+        self.children[arm].first()
+
+    def _done(self, arm: str) -> dict:
+        if arm not in self.got:
+            self.got[arm] = self.children[arm].wait_for(
+                lambda x: x.get("arm_done") == arm, 6 * CHILD_TIMEOUT_S,
+                f"the {arm} arm")
+            emit(self.got[arm])
+        return self.got[arm]
+
+    def start(self) -> "SimPhase":
+        try:
+            for arm in SIM_ARMS:
+                self._child(arm)
+            self.cli = sim_cli_child(self.dev)
+            emit(self.cli)
+            self._done("solver_cpu")
+            self._child("verify", role="simverify")
+        except BaseException:
+            self.kill()
+            raise
+        return self
+
+    def kill(self) -> None:
+        for child in self.children.values():
+            child.kill()
+
+    def trace(self, arm: str) -> list:
+        from volcano_tpu_torch.sim.replay import load_trace
+        return load_trace(os.path.join(self.tmp, f"{arm}.jsonl"))
+
+    def finish(self) -> dict:
+        from volcano_tpu_torch.sim.replay import first_divergence
+        try:
+            for arm in self.children:
+                self._done(arm)
+        finally:
+            self.kill()
+        got = self.got
+        for card, plain in (("solver", "solver_cpu"),
+                            ("sharded", "sharded_cpu")):
+            want = self.trace(plain)
+            div = first_divergence(want, self.trace(card)[:len(want)])
+            if div is not None:
+                raise AssertionError(f"the card's {card} trace differs "
+                                     f"from the plain route's: "
+                                     f"{json.dumps(div)[:2000]}")
+        if not got["verify"]["verify_ok"]:
+            raise AssertionError(f"verify of the card's trace on the card "
+                                 f"failed: {got['verify']['divergence']}")
+        if got["fragmented"]["digests"] != got["fragmented_cpu"]["digests"]:
+            raise AssertionError("the fragmented A/B decided unlike the "
+                                 "plain route on the card")
+        split = first_divergence(self.trace("solver"),
+                                 self.trace("sharded"))
+        launches = (sum(got[a]["launches"] for a in (
+            "solver", "sharded", "fragmented", "verify"))
+            + self.cli["in_process_launches"])
+        import shutil
+        shutil.rmtree(self.tmp, ignore_errors=True)
+        out = {"phase": "sim", "regime": "summary",
+               "solver_digest": got["solver"]["digest"],
+               "sharded_digest": got["sharded"]["digest"],
+               "card_equals_plain": True,
+               "sharded_equals_plain_prefix": SIM_ARMS["sharded_cpu"][2],
+               "verify_on_card": True,
+               "solver_vs_sharded_first_divergence":
+                   None if split is None else split["cycle"],
+               "fragmented_equals_plain": True,
+               "fragmented_trio": got["fragmented"]["trio"],
+               "launches": launches}
+        emit(out)
+        return out
+
+
+def role_simverify(args) -> int:
+    """``--role simverify``: verify on the card of the plain route's
+    solver trace (``--data-dir``/solver_cpu.jsonl), which phase_sim holds
+    equal to the card's own; one JSON line."""
+    torch.set_num_threads(1)
+    print(json.dumps(device_line("simverify", arm="verify")), flush=True)
+    out = sim_arm(torch.device("cuda", 0), "verify", "solver",
+                  golden=os.path.join(args.data_dir, "solver_cpu.jsonl"))
+    print(json.dumps({"arm_done": "verify", **out}), flush=True)
+    return 0
+
+
+#: the standalone phase (a): bench.py full_cycle()'s cell, not cut (2000
+#: nodes of 32 cpu / 128Gi, queues 1:2:3, 1000 vcjobs of 10 pods at cpu
+#: 1 + (k // 3) % 3 and 1-4Gi), the first ``gpu_nodes`` of the nodes also
+#: carrying two 8-unit GPU cards (tests/test_gpu_sharing.py's gpu_node)
+#: and a NoSchedule taint that only the GPU jobs tolerate, as GPU pools
+#: are kept; ``host_only`` jobs of each host-only kind (required pod
+#: affinity, a PVC claim, a shared GPU) in the burst, then ``waves`` waves
+#: of ``wave_jobs`` vcjobs and one host-only job while ``complete``
+#: Running jobs finish. Half the host-only jobs rank above the solver
+#: jobs and half below, so both host passes of allocate (before the
+#: device solve and after it) have work
+STANDALONE = dict(n_nodes=CYCLE["n_nodes"], n_jobs=CYCLE["n_jobs"],
+                  tasks_per_job=10, gpu_nodes=20, host_only=20, waves=12,
+                  wave_jobs=10, complete=10, max_turns=8)
+STANDALONE_CONF = """
+actions: "enqueue, allocate, backfill"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+- plugins:
+  - name: drf
+  - name: predicates
+    arguments:
+      predicate.GPUSharingEnable: true
+  - name: proportion
+  - name: nodeorder
+"""
+HOST_ONLY_KINDS = ("affinity", "pvc", "gpu")
+SA_TIMING_KEYS = ("open_ms", "enqueue_ms", "allocate_ms", "order_ms",
+                  "flatten_ms", "flatten_mode", "dispatch_ms", "replay_ms",
+                  "backfill_ms", "close_ms", "arena_full_ship",
+                  "arena_bytes_shipped")
+
+
+def vcjob_yaml(name: str, ns: str, queue: str, replicas: int, cpu: int,
+               mem_gi: int, priority: str = "", labels=None,
+               affinity_to: str = "", gpu_mem: int = 0) -> str:
+    """A vcjob's YAML as a user submits it: one task of ``replicas``
+    pods, minAvailable = replicas, collected when finished; optionally a
+    priority class, required pod affinity to pods labelled
+    ``app: <affinity_to>`` and a shared-GPU memory limit (with the GPU
+    nodes' taint tolerated)."""
+    lines = ["apiVersion: batch.volcano.sh/v1alpha1", "kind: Job",
+             f"metadata: {{name: {name}, namespace: {ns}}}", "spec:",
+             f"  minAvailable: {replicas}", f"  queue: {queue}",
+             "  ttlSecondsAfterFinished: 0"]
+    if priority:
+        lines.append(f"  priorityClassName: {priority}")
+    lines += ["  tasks:", "  - name: worker", f"    replicas: {replicas}",
+              "    template:"]
+    if labels:
+        lines.append("      metadata: {labels: {%s}}" % ", ".join(
+            f"{k}: {v}" for k, v in labels.items()))
+    lines.append("      spec:")
+    if gpu_mem:
+        lines += ["        tolerations:", "        - {key: nvidia.com/gpu, "
+                  "operator: Exists, effect: NoSchedule}"]
+    if affinity_to:
+        lines += ["        affinity:", "          podAffinity:",
+                  "            requiredDuringSchedulingIgnoredDuringExecution:",
+                  "            - labelSelector:",
+                  f"                matchLabels: {{app: {affinity_to}}}",
+                  "              topologyKey: kubernetes.io/hostname"]
+    lines += ["        containers:", "        - name: c",
+              f"          requests: {{cpu: \"{cpu}\", memory: {mem_gi}Gi}}"]
+    if gpu_mem:
+        lines.append(f"          limits: {{volcano.sh/gpu-memory: "
+                     f"{gpu_mem}}}")
+    return "\n".join(lines) + "\n"
+
+
+class StandaloneWorld:
+    """The whole control plane in one process: ``Standalone(device=dev,
+    metrics_port=0)`` (admission, the ControllerManager, the Scheduler,
+    async bind effectors, the metrics server) at STANDALONE's cell. vcjobs
+    go in as YAML through ``apply_job_yaml``. A PVC job is a podgroup
+    whose two pods each name their own claim (the job controller, in
+    both packages, does not carry a template's volumes onto its pods).
+    Records every bind per turn, each turn's controllers and cycle ms,
+    and which host-only jobs each host pass of allocate placed: ``pre``
+    (jobs that outrank every solver job, before the device solve) and
+    ``post`` (after it)."""
+
+    NS = "bench"
+
+    def __init__(self, dev, sc):
+        from volcano_tpu_torch.api import POD_GROUP_ANNOTATION
+        from volcano_tpu_torch.cache import RecordingBinder
+        from volcano_tpu_torch.framework import get_action
+        from volcano_tpu_torch.models import (
+            Node, PriorityClass, Queue, QueueSpec,
+        )
+        from volcano_tpu_torch.standalone import Standalone
+        self.sc, self.ann = sc, POD_GROUP_ANNOTATION
+        self.sa = Standalone(scheduler_conf=STANDALONE_CONF,
+                             metrics_port=0, device=dev)
+        self.store = self.sa.store
+        self.on_card = self.sa.cache.device.type == "cuda"
+        self.turn_binds: list = []
+        self.turn_jobs: set = set()
+        self.bound: dict = {}
+        self.rebound: list = []
+        self.sa.cache.binder = RecordingBinder(self.sa.cache.binder,
+                                               on_bind=self._on_bind)
+        for i in range(3):
+            self.store.create("queues", Queue(name=f"q{i}",
+                                              spec=QueueSpec(weight=i + 1)))
+        self.store.create("priorityclasses", PriorityClass("high", 1000))
+        self.store.create("priorityclasses", PriorityClass("low", -1000))
+        rl = {"cpu": "32", "memory": "128Gi", "pods": "110"}
+        gpu = dict(rl, **{"volcano.sh/gpu-memory": 16,
+                          "volcano.sh/gpu-number": 2})
+        taint = [{"key": "nvidia.com/gpu", "value": "present",
+                  "effect": "NoSchedule"}]
+        self.store.bulk_apply([
+            ("nodes", Node(name=f"n{i}", allocatable=dict(
+                gpu if i < sc["gpu_nodes"] else rl),
+                capacity=dict(gpu if i < sc["gpu_nodes"] else rl),
+                taints=list(taint) if i < sc["gpu_nodes"] else []))
+            for i in range(sc["n_nodes"])])
+        self.k = 0
+        self.h = 0
+        self.kind_of: dict = {}     # job name -> solver / host-only kind
+        self.prio_of: dict = {}
+        self.running: list = []     # solver jobs Running, oldest first
+        self.passes = {"pre": set(), "post": set()}
+        self.turns: list = []
+        act = get_action("allocate")
+        self._act = act
+        orig_host, orig_solver = act._execute_host, act._execute_solver
+        state = {"in_solver": False}
+
+        def execute_solver(ssn, *a, **kw):
+            state["in_solver"] = True
+            try:
+                return orig_solver(ssn, *a, **kw)
+            finally:
+                state["in_solver"] = False
+
+        def execute_host(ssn, only_jobs=None):
+            if only_jobs is not None:
+                names = {ssn.jobs[u].name for u in only_jobs
+                         if u in ssn.jobs}
+                self._pass_jobs["pre" if state["in_solver"]
+                                else "post"] |= names
+            return orig_host(ssn, only_jobs=only_jobs)
+
+        act._execute_solver, act._execute_host = execute_solver, \
+            execute_host
+        self._pass_jobs = {"pre": set(), "post": set()}
+
+    def close(self) -> None:
+        for name in ("_execute_solver", "_execute_host"):
+            self._act.__dict__.pop(name, None)
+        self.sa.stop()
+
+    def _on_bind(self, pod, hostname) -> None:
+        key = f"{pod.namespace}/{pod.name}"
+        if key in self.bound:
+            self.rebound.append(key)
+        self.bound[key] = hostname
+        self.turn_binds.append((pod.name, hostname))
+        self.turn_jobs.add(pod.annotations.get(self.ann, ""))
+
+    def submit_solver(self, n: int) -> list:
+        names = []
+        for _ in range(n):
+            k = self.k
+            self.k += 1
+            name = f"vj{k}"
+            self.sa.apply_job_yaml(vcjob_yaml(
+                name, self.NS, f"q{k % 3}", self.sc["tasks_per_job"],
+                1 + (k // 3) % 3, 1 + k % 4, labels={"app": name}))
+            self.kind_of[name] = "solver"
+            names.append(name)
+        return names
+
+    def submit_host_only(self, kind: str, high: bool,
+                         anchor: str) -> str:
+        """One host-only job: ``affinity`` (2 pods that must share a node
+        with a pod of ``anchor``), ``pvc`` (a podgroup of 2 pods, each
+        with its own claim) or ``gpu`` (2 pods of 4 GPU-memory units)."""
+        from volcano_tpu_torch.models import (
+            PersistentVolumeClaim, Pod, PodGroup, PodGroupSpec,
+        )
+        h = self.h
+        self.h += 1
+        name, queue = f"{kind}{h}", f"q{h % 3}"
+        prio = "high" if high else "low"
+        if kind == "pvc":
+            for i in range(2):
+                claim = f"{name}-claim-{i}"
+                self.store.create("pvcs", PersistentVolumeClaim(
+                    name=claim, namespace=self.NS))
+                self.store.create("pods", Pod(
+                    name=f"{name}-{i}", namespace=self.NS,
+                    annotations={self.ann: name},
+                    priority_class_name=prio,
+                    containers=[{"name": "c", "requests": {
+                        "cpu": "1", "memory": "1Gi"}}],
+                    volumes=[{"name": "data", "persistentVolumeClaim": {
+                        "claimName": claim}}]))
+            self.store.create("podgroups", PodGroup(
+                name=name, namespace=self.NS,
+                spec=PodGroupSpec(min_member=2, queue=queue,
+                                  priority_class_name=prio)))
+        else:
+            self.sa.apply_job_yaml(vcjob_yaml(
+                name, self.NS, queue, 2, 1, 1, priority=prio,
+                affinity_to=anchor if kind == "affinity" else "",
+                gpu_mem=4 if kind == "gpu" else 0))
+        self.kind_of[name] = kind
+        self.prio_of[name] = prio
+        return name
+
+    def turn(self) -> dict:
+        """One Standalone.run_once, the kernel's count set to 0 just
+        before and read just after; its controllers' and cycle's ms."""
+        from volcano_tpu_torch.ops import fused_choice as fc
+        sa = self.sa
+        spent = {"controllers_ms": 0.0, "cycle_ms": 0.0}
+        pm, ro = sa.controllers.process_all, sa.scheduler.run_once
+
+        def timed(key, fn):
+            def run(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    spent[key] += (time.perf_counter() - t0) * 1e3
+            return run
+
+        sa.controllers.process_all = timed("controllers_ms", pm)
+        sa.scheduler.run_once = timed("cycle_ms", ro)
+        self.turn_binds, self.turn_jobs = [], set()
+        self._pass_jobs = {"pre": set(), "post": set()}
+        fc.fused_choice.launches = 0
+        t0 = time.perf_counter()
+        try:
+            sa.run_once()
+        finally:
+            del sa.controllers.process_all, sa.scheduler.run_once
+        t = sa.scheduler.last_cycle_timing
+        if t.get("allocate_error") or t.get("host_fallback"):
+            raise AssertionError(f"a standalone turn left the device "
+                                 f"path: {t}")
+        host_bound = {p: sorted(self._pass_jobs[p] & self.turn_jobs)
+                      for p in ("pre", "post")}
+        for p in host_bound:
+            self.passes[p] |= set(host_bound[p])
+        row = {"turn": len(self.turns),
+               "turn_ms": (time.perf_counter() - t0) * 1e3, **spent,
+               "launches": fc.fused_choice.launches,
+               "binds": len(self.turn_binds),
+               "host_only_bound": host_bound,
+               **{k: t[k] for k in SA_TIMING_KEYS if k in t}}
+        if self.on_card and row["binds"] > len(
+                host_bound["pre"] + host_bound["post"]) * 2 \
+                and row["launches"] <= 0:
+            raise AssertionError(f"a standalone turn bound solver pods "
+                                 f"without a kernel launch: {row}")
+        self.turns.append((row, sorted(self.turn_binds)))
+        return row
+
+    def pending(self, names) -> list:
+        """The jobs of ``names`` not yet Running (a PVC job: not every
+        pod bound)."""
+        jobs = {j.name: j for j in self.store.list("jobs",
+                                                   namespace=self.NS)}
+        out = []
+        for name in names:
+            if self.kind_of[name] == "pvc":
+                pods = [p for p in self.store.list("pods",
+                                                   namespace=self.NS)
+                        if p.annotations.get(self.ann) == name]
+                if len(pods) < 2 or not all(p.node_name for p in pods):
+                    out.append(name)
+            else:
+                j = jobs.get(name)
+                if j is None or j.status.state.phase.value != "Running":
+                    out.append(name)
+        return out
+
+    def converge(self, names, what: str) -> dict:
+        t0 = time.perf_counter()
+        rows = []
+        while self.pending(names):
+            if len(rows) == self.sc["max_turns"]:
+                left = self.pending(names)
+                raise AssertionError(f"standalone {what}: {len(left)} jobs "
+                                     f"not Running after {len(rows)} "
+                                     f"turns: {left[:8]}")
+            rows.append(self.turn())
+        if self.rebound:
+            raise AssertionError(f"standalone {what}: pods bound twice: "
+                                 f"{self.rebound[:5]}")
+        return {"turns": len(rows),
+                "all_running_ms": (time.perf_counter() - t0) * 1e3,
+                "rows": rows}
+
+    def complete(self, n: int) -> list:
+        done, self.running = self.running[:n], self.running[n:]
+        for name in done:
+            for p in self.store.list("pods", namespace=self.NS):
+                if p.annotations.get(self.ann) == name:
+                    p.phase = "Succeeded"
+                    self.store.update("pods", p)
+        return done
+
+
+def standalone_run(dev, sc) -> dict:
+    """The standalone script on ``dev``: the burst (1000 vcjobs and the
+    host-only mix) turned until every job runs, then the waves."""
+    w = StandaloneWorld(dev, sc)
+    try:
+        t0 = time.perf_counter()
+        solver = w.submit_solver(sc["n_jobs"])
+        host = [w.submit_host_only(kind, i % 2 == 0, f"vj{i}")
+                for kind in HOST_ONLY_KINDS
+                for i in range(sc["host_only"])]
+        submit_ms = (time.perf_counter() - t0) * 1e3
+        burst = w.converge(solver + host, "burst")
+        burst["submit_ms"] = submit_ms
+        burst["submission_to_all_running_ms"] = \
+            (time.perf_counter() - t0) * 1e3
+        w.running = list(solver)
+        waves = []
+        for i in range(sc["waves"]):
+            done = w.complete(sc["complete"])
+            new = w.submit_solver(sc["wave_jobs"])
+            kind = HOST_ONLY_KINDS[i % 3]
+            new.append(w.submit_host_only(kind, i % 2 == 0,
+                                          w.running[0]))
+            row = w.converge(new, f"wave {i}")
+            row.update(wave=i, completed=len(done), kind=kind)
+            waves.append(row)
+            w.running += [n for n in new if w.kind_of[n] == "solver"]
+        return {"burst": burst, "waves": waves,
+                "turn_binds": [b for _, b in w.turns],
+                "passes": {p: len(v) for p, v in w.passes.items()},
+                "pass_kinds": {p: sorted({w.kind_of[n] for n in v})
+                               for p, v in w.passes.items()},
+                "jobs": w.k, "host_only_jobs": w.h,
+                "pods_bound": len(w.bound),
+                "launches": sum(r["launches"] for r, _ in w.turns)}
+    finally:
+        w.close()
+
+
+def role_standalonetwin(args) -> int:
+    """``--role standalonetwin``: the standalone script on device="cpu"
+    (the plain route) at STANDALONE updated by ``--scale``; its per-turn
+    binds to ``--data-dir``/twin.json."""
+    torch.set_num_threads(1)
+    print(json.dumps(device_line("standalonetwin")), flush=True)
+    res = standalone_run("cpu", dict(STANDALONE,
+                                     **json.loads(args.scale or "{}")))
+    with open(os.path.join(args.data_dir, "twin.json"), "w") as f:
+        json.dump(res["turn_binds"], f)
+    print(json.dumps({"twin_done": True, "passes": res["passes"],
+                      "turns": len(res["turn_binds"]),
+                      "launches": res["launches"]}), flush=True)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def standalone_binary(dev) -> dict:
+    """``python -m volcano_tpu_torch.standalone --serve-store`` as a child
+    on the card: nodes created over the wire, example/mpi-job.yaml,
+    example/tensorflow-job.yaml and a generated job submitted with
+    ``python -m volcano_tpu_torch.cli job run -f``, every pod bound, `job
+    list` and `status` over the wire, the child's cmdline naming the port
+    and its memory map holding libcuda and the fused_choice kernel
+    library (loaded only to launch the kernel on CUDA tensors);
+    SIGTERM, exit 0. The card's compute-process list is printed but not
+    read: inside the machine's PID namespace it shows no usable PIDs."""
+    import signal
+    import tempfile
+    from volcano_tpu_torch.client import RemoteClusterStore
+    from volcano_tpu_torch.models import Node
+    port = _free_port()
+    addr = f"127.0.0.1:{port}"
+    env = dict(os.environ, PYTHONHASHSEED="0", PYTHONUNBUFFERED="1")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "volcano_tpu_torch.standalone",
+         "--serve-store", addr, "--metrics-port", "0", "--period", "0.2"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    log: list = []
+    remote = None
+    tmp = tempfile.mkdtemp(prefix="sa-", dir=os.path.join(REPO, "build"))
+    try:
+        for line in proc.stdout:
+            log.append(line.rstrip("\n"))
+            if "standalone up" in line:
+                break
+        else:
+            raise AssertionError("the standalone binary exited before "
+                                 "it came up:\n" + "\n".join(log[-40:]))
+        up_ms = (time.perf_counter() - t0) * 1e3
+        import threading
+        threading.Thread(target=lambda: [log.append(x.rstrip("\n"))
+                                         for x in proc.stdout],
+                         daemon=True).start()
+        cmdline = open(f"/proc/{proc.pid}/cmdline", "rb").read() \
+            .decode().split("\0")
+        if cmdline[1:3] != ["-m", "volcano_tpu_torch.standalone"]:
+            raise AssertionError(f"the standalone child runs {cmdline}")
+        remote = RemoteClusterStore(addr)
+        rl = {"cpu": "8", "memory": "16Gi", "pods": "110"}
+        for i in range(4):
+            remote.create("nodes", Node(name=f"n{i}", allocatable=dict(rl),
+                                        capacity=dict(rl)))
+        gen = os.path.join(tmp, "gen.yaml")
+        with open(gen, "w") as f:
+            f.write(vcjob_yaml("gen-job", "default", "default", 4, 1, 1))
+        cli = [sys.executable, "-m", "volcano_tpu_torch.cli", "--server",
+               addr]
+
+        def vcctl(*argv) -> str:
+            out = subprocess.run(cli + list(argv), cwd=REPO, env=env,
+                                 capture_output=True, text=True,
+                                 timeout=120)
+            if out.returncode != 0:
+                raise AssertionError(f"vcctl {argv} exited "
+                                     f"{out.returncode}: {out.stderr}")
+            return out.stdout
+        t1 = time.perf_counter()
+        for path in (os.path.join(REPO, "example", "mpi-job.yaml"),
+                     os.path.join(REPO, "example", "tensorflow-job.yaml"),
+                     gen):
+            out = vcctl("job", "run", "-f", path)
+            if "successfully" not in out:
+                raise AssertionError(f"vcctl job run -f {path}: {out}")
+        want = 3 + 3 + 4
+        deadline = time.time() + 120
+        bound = []
+        while time.time() < deadline:
+            pods = remote.list("pods", namespace="default")
+            bound = [p for p in pods if p.node_name]
+            if len(bound) == want:
+                break
+            time.sleep(0.2)
+        if len(bound) != want:
+            raise AssertionError(f"the standalone binary bound "
+                                 f"{len(bound)} of {want} pods:\n"
+                                 + "\n".join(log[-40:]))
+        bound_ms = (time.perf_counter() - t1) * 1e3
+        listed = vcctl("job", "list")
+        status = vcctl("status")
+        for name in ("mpi-demo", "tf-demo", "gen-job"):
+            if name not in listed:
+                raise AssertionError(f"vcctl job list lacks {name}:\n"
+                                     + listed)
+        if "store: shards=1" not in status:
+            raise AssertionError("vcctl status:\n" + status)
+        apps = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip().splitlines()
+        maps = open(f"/proc/{proc.pid}/maps").read()
+        on_card = {"libcuda": "libcuda.so" in maps,
+                   "fused_choice_library": "fused_choice" in maps}
+        remote.close()
+        remote = None
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        if rc != 0:
+            raise AssertionError(f"the standalone binary exited {rc} on "
+                                 f"SIGTERM:\n" + "\n".join(log[-40:]))
+        return {"phase": "standalone", "regime": "binary",
+                "cmdline": cmdline[1:3], "up_ms": up_ms,
+                "pods_bound": len(bound), "submit_to_bound_ms": bound_ms,
+                "job_list_lines": len(listed.splitlines()),
+                "status": status.splitlines()[:2],
+                "mapped": on_card, "compute_apps": apps,
+                "exit_code": rc}
+    finally:
+        if remote is not None:
+            remote.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_standalone(dev, scale=None) -> dict:
+    """(a) The control plane in one process on the card, turn by turn,
+    beside its twin on device="cpu" in a child (bind for bind, per turn);
+    (b) the standalone binary on the card."""
+    import tempfile
+    sc = dict(STANDALONE, **(scale or {}))
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="sa-", dir=os.path.join(REPO, "build"))
+    argv = ["--role", "standalonetwin", "--data-dir", tmp]
+    if scale:
+        argv += ["--scale", json.dumps(scale)]
+    twin = Child("standalone-twin", argv)
+    try:
+        twin.first()
+        res = standalone_run(dev, sc)
+        burst = res["burst"]
+        emit({"phase": "standalone", "regime": "burst",
+              **{k: v for k, v in burst.items() if k != "rows"}})
+        for row in burst["rows"]:
+            emit({"phase": "standalone", "regime": "burst_turn", **row})
+        for wave in res["waves"]:
+            emit({"phase": "standalone", "regime": "wave",
+                  **{k: v for k, v in wave.items() if k != "rows"},
+                  "turn_ms": [r["turn_ms"] for r in wave["rows"]],
+                  "cycle_ms": [r["cycle_ms"] for r in wave["rows"]],
+                  "controllers_ms": [r["controllers_ms"]
+                                     for r in wave["rows"]],
+                  "launches": [r["launches"] for r in wave["rows"]],
+                  "host_only_bound": [r["host_only_bound"]
+                                      for r in wave["rows"]]})
+        done = twin.wait_for(lambda x: x.get("twin_done"),
+                             3 * CHILD_TIMEOUT_S, "the twin's run")
+        with open(os.path.join(tmp, "twin.json")) as f:
+            host = [[tuple(b) for b in turn] for turn in json.load(f)]
+    finally:
+        twin.kill()
+    card = res["turn_binds"]
+    for i, (a, b) in enumerate(zip(card, host)):
+        if [tuple(x) for x in a] != b:
+            raise AssertionError(f"standalone turn {i}: the card's binds "
+                                 f"differ from the host's")
+    if len(card) != len(host):
+        raise AssertionError(f"standalone: {len(card)} turns on the card, "
+                             f"{len(host)} on the host, the first "
+                             f"{min(len(card), len(host))} binding alike")
+    if min(res["passes"].values()) <= 0:
+        raise AssertionError(f"standalone: a host pass of allocate bound "
+                             f"no host-only job: {res['passes']}")
+    binary = standalone_binary(dev)
+    emit(binary)
+    if not all(binary["mapped"].values()):
+        raise AssertionError(f"the standalone binary did not load libcuda "
+                             f"and the kernel library: "
+                             f"{binary['mapped']}")
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    out = {"phase": "standalone", "regime": "summary",
+           "jobs": res["jobs"], "host_only_jobs": res["host_only_jobs"],
+           "pods_bound": res["pods_bound"],
+           "turns": len(card), "identical_to_host": True,
+           "host_passes_jobs_bound": res["passes"],
+           "host_passes_kinds": res["pass_kinds"],
+           "launches": res["launches"], "twin_launches": done["launches"],
+           "binary_pods_bound": binary["pods_bound"]}
+    emit(out)
+    return out
+
+
 PHASES = ("kernel", "edges", "small", "solve", "profile", "cycle", "hdrf",
           "evict", "sequential", "sharded", "reschedule", "prewarm",
           "sidecar", "failover", "lifecycle", "netstore", "netha",
-          "netshard")
+          "netshard", "sim", "standalone")
 
 
 def main() -> int:
@@ -5131,10 +6091,13 @@ def main() -> int:
                          "and print its JSON (the prewarm phase starts "
                          "each arm this way)")
     ap.add_argument("--role", choices=("store", "scheduler",
-                                       "shardprimary", "replica"),
+                                       "shardprimary", "replica", "simarm",
+                                       "simverify", "standalonetwin"),
                     help="run as a child of the netstore / netha / "
-                         "netshard phases (role_store, role_scheduler, "
-                         "role_shardprimary, role_replica)")
+                         "netshard / sim / standalone phases (role_store, "
+                         "role_scheduler, role_shardprimary, role_replica, "
+                         "role_simarm, role_simverify, "
+                         "role_standalonetwin)")
     ap.add_argument("--data-dir")
     ap.add_argument("--port", type=int, default=0)
     ap.add_argument("--seed", choices=("bound",))
@@ -5150,6 +6113,9 @@ def main() -> int:
     ap.add_argument("--cold-standby", action="store_true")
     ap.add_argument("--shards", type=int, default=4)
     ap.add_argument("--upstream")
+    ap.add_argument("--arm", choices=tuple(SIM_ARMS) + ("verify",))
+    ap.add_argument("--scale", help="a JSON dict over STANDALONE (the "
+                    "standalone twin runs its parent's scale)")
     args = ap.parse_args()
     if os.environ.get("PYTHONHASHSEED") != "0":
         # the netha phase compares decisions across processes: this
@@ -5172,6 +6138,12 @@ def main() -> int:
         return role_shardprimary(args)
     if args.role == "replica":
         return role_replica(args)
+    if args.role == "simarm":
+        return role_simarm(args)
+    if args.role == "simverify":
+        return role_simverify(args)
+    if args.role == "standalonetwin":
+        return role_standalonetwin(args)
     if args.prewarm_arm:
         print(json.dumps(prewarm_arm(dev, args.prewarm_arm == "on",
                                      PREWARM)), flush=True)
@@ -5183,6 +6155,8 @@ def main() -> int:
         t0 = time.perf_counter()
         out = fn(*args)
         seconds[name] = time.perf_counter() - t0
+        print(f"chip_smoke: {name} took {seconds[name]:.1f} s",
+              file=sys.stderr, flush=True)
         return out
 
     run("build", phase_build)
@@ -5202,6 +6176,17 @@ def main() -> int:
     if "netshard" in phases:
         out["netshard"] = run("netshard", phase_netshard, dev, None,
                               out.get("netstore"))
+    # the standalone phase runs while the card verifies the sim's trace
+    sim = run("sim_start", SimPhase(dev).start) if "sim" in phases \
+        else None
+    try:
+        if "standalone" in phases:
+            out["standalone"] = run("standalone", phase_standalone, dev)
+        if sim is not None:
+            out["sim"] = run("sim", sim.finish)
+    finally:
+        if sim is not None:
+            sim.kill()
     emit({"phase": "seconds", **seconds})
     if set(phases) != set(PHASES):
         return 0
@@ -5221,8 +6206,10 @@ def main() -> int:
     # cycles (its twin's counted apart), the netstore scheduler's cycles
     # over the wire (its in-process twin's apart), the netha scheduler
     # processes' leader and shadow cycles (each child counts from 0 at its
-    # start and reports its total) and the netshard scheduler's cycles over
-    # the read tier (its twin's apart), each counted from 0 (the sequential
+    # start and reports its total), the netshard scheduler's cycles over
+    # the read tier (its twin's apart), the sim's card arms (its children
+    # and the vcctl child's in-process twin) and the standalone's turns on
+    # the card (its CPU twin's apart), each counted from 0 (the sequential
     # mode launches no kernel)
     cycle_rows = [cyc["burst"]] + cyc["steady"]
     evict_launches = sum(r["launches"] + r["next_cycle_launches"]
@@ -5241,10 +6228,13 @@ def main() -> int:
             "lifecycle": lifecycle["launches"],
             "netstore": out["netstore"]["launches"],
             "netha": out["netha"]["launches"],
-            "netshard": out["netshard"]["launches"]}
+            "netshard": out["netshard"]["launches"],
+            "sim": out["sim"]["launches"],
+            "standalone": out["standalone"]["launches"]}
     if min(ring.values()) <= 0:
-        raise AssertionError(f"a path of the outer ring, the lifecycle or "
-                             f"the network launched no kernel: {ring}")
+        raise AssertionError(f"a path of the outer ring, the lifecycle, "
+                             f"the network, the sim or the standalone "
+                             f"launched no kernel: {ring}")
     emit({"kernels": [{
         "name": "fused_choice", "route": "cuda",
         "source": "volcano_tpu_torch/csrc/fused_choice.cu",
@@ -5275,6 +6265,9 @@ def main() -> int:
         "launches_netha_schedulers": ring["netha"],
         "launches_netshard": ring["netshard"],
         "launches_netshard_twin": out["netshard"]["twin_launches"],
+        "launches_sim": ring["sim"],
+        "launches_standalone": ring["standalone"],
+        "launches_standalone_twin": out["standalone"]["twin_launches"],
         "launches_headline_solve": main_launches,
         "max_abs_err": max(r["max_abs_err"]
                            for r in krows + [shard_k, resched_k]),

@@ -12,10 +12,11 @@ by name). Each scenario runs once in each package, asserts the reference
 test's own expectations in both, and the two records must be equal
 converge by converge.
 
-One card test (``cuda`` marker, skipped without a GPU) runs the
-lifecycle twin of chip_smoke.py at 50 nodes and 20 jobs on the card and
-on the CPU. This module imports no jax at top level: the card's machine
-has none.
+Three card tests (``cuda`` marker, skipped without a GPU) run, on the
+card and on the CPU, chip_smoke.py's lifecycle twin at 50 nodes and 20
+jobs, its standalone script at 100 nodes with the host-only mix, and the
+simulator's solver and sharded modes. This module imports no jax at top
+level: the card's machine has none.
 
 Tolerance: exact.
 """
@@ -556,3 +557,41 @@ def test_lifecycle_twin_on_card():
                                     dict(n_nodes=50, n_jobs=20, waves=3))
     assert out["identical_to_host"] and out["waves"] == 3
     assert out["launches"] > 0
+
+
+@pytest.mark.cuda
+def test_standalone_host_only_mix_on_card():
+    """chip_smoke.py's standalone script at 100 nodes and 50 vcjobs, with
+    the host-only mix (affinity, PVC and shared-GPU jobs above and below
+    the solver jobs' priority), through Standalone on the card and on the
+    CPU: the same binds turn by turn, both host passes of allocate
+    placing host-only jobs on a CUDA arena, and the kernel launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+    sc = dict(chip_smoke.STANDALONE, n_nodes=100, n_jobs=50, gpu_nodes=5,
+              host_only=4, waves=3, wave_jobs=3, complete=3)
+    card = chip_smoke.standalone_run(torch.device("cuda", 0), sc)
+    host = chip_smoke.standalone_run("cpu", sc)
+    assert card["turn_binds"] == host["turn_binds"]
+    assert min(card["passes"].values()) > 0
+    assert card["launches"] > 0
+
+
+@pytest.mark.cuda
+def test_sim_trace_on_card_equals_host():
+    """The simulator's solver and sharded modes on the card against its
+    solver mode on the CPU: byte-identical traces (22 nodes, 60 cycles of
+    sim_quality's workload)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from volcano_tpu_torch.sim import Workload, WorkloadSpec, run_sim
+    wl = Workload(WorkloadSpec(seed=123, cycles=60, nodes=22,
+                               arrival_rate=4.0, gang_min=2, gang_max=5,
+                               duration_min=5, duration_max=40,
+                               queues=(("q0", 1), ("q1", 2), ("q2", 3))))
+    dev = torch.device("cuda", 0)
+    host = run_sim(workload=wl, cycles=60, mode="solver", device="cpu")
+    for mode in ("solver", "sharded"):
+        card = run_sim(workload=wl, cycles=60, mode=mode, device=dev)
+        assert card.lines == host.lines, mode

@@ -4,7 +4,8 @@ durable) on the CPU, against the JAX package's where both can meet.
 - The cases of tests/test_netstore.py (remote CRUD and watch, a remote
   scheduling cache, token auth, TLS, the watch-failure callback, slow
   watchers, the WAL, durable recovery, bulk_apply, the job controller's
-  bulk ingest) but for the vcctl ones, which wait for the CLI, and the
+  bulk ingest) but for the vcctl ones, in tests/test_torch_cli.py and
+  tests/test_torch_standalone.py, and the
   codec (tests/test_torch_codec.py) and the kill-9 store soak
   (tests/test_torch_netha.py), which live beside their kind.
 - tests/test_delta_path.py: negotiation and the typed fallback ladder.

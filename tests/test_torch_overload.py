@@ -5,8 +5,8 @@ client/server.py and client/remote.py), on the CPU.
 - The cases of tests/test_overload.py through the port (gate units,
   the retry budget, live-server typed sheds, retry discipline and wire
   compatibility, the metric families, TestShardedAndProc's gated
-  router and per-worker gates) but for the vcctl tables, which wait for
-  the CLI.
+  router and per-worker gates) but for the vcctl tables, which are
+  tests/test_torch_cli.py's.
 - One scripted sequence of admissions through both packages' gates
   under a fake clock: the same grants, sheds, reasons, retry-after
   hints and lane tables, step by step.

@@ -3,7 +3,11 @@
 - importing any of its modules loads neither jax nor the JAX package, and
   no source file of the port imports either;
 - its entry points run on CUDA unless the caller passes device="cpu", and
-  raise rather than fall back to the host when there is no GPU;
+  raise rather than fall back to the host when there is no GPU: the
+  Scheduler, the sim (VirtualCluster, run_sim, verify), the Standalone and
+  the three ``-m`` entry points (sim, vcctl sim, standalone);
+- every process its entry points start runs the port, never jax or the
+  JAX package (shard workers, vcctl, the sim);
 - the compact int16 result round-trips and packs exactly like the JAX
   package's.
 """
@@ -53,7 +57,10 @@ def test_import_leaves_jax_and_the_jax_package_out():
     for mod in ("resilience.overload", "client.codec", "client.durable",
                 "client.server", "client.remote", "metrics.server",
                 "webhooks.server", "client.sharded", "client.shardproc",
-                "client.replica", "client.readtier"):
+                "client.replica", "client.readtier", "sim", "sim.__main__",
+                "sim.recorder", "sim.replay", "sim.score",
+                "sim.virtualcluster", "sim.workload", "cli", "cli.__main__",
+                "cli.vcctl", "standalone"):
         assert f"volcano_tpu_torch.{mod}" in mods
     code = (
         "import importlib, sys\n"
@@ -107,6 +114,61 @@ IMPORT_RE = re.compile(
     r"|import_module\(\s*['\"](?:jax|volcano_tpu)\b(?!_torch)", re.M)
 
 
+def test_port_has_every_module_of_the_jax_package():
+    """File for file, the port holds every module of the JAX package but
+    its Pallas kernel's, and adds only its own kernel, build, conversion
+    and mesh modules."""
+    def tree(root):
+        return {p.relative_to(root).as_posix() for p in root.rglob("*.py")}
+    ref = tree(REPO / "volcano_tpu")
+    port = tree(PORT_DIR)
+    assert ref - port == {"ops/pallas_kernels.py"}
+    assert port - ref == {"ops/_build.py", "ops/convert.py",
+                          "ops/fused_choice.py", "parallel/mesh.py"}
+    assert (PORT_DIR / "csrc" / "fused_choice.cu").is_file()
+
+
+#: the compile pipeline's families describe what the port compiles
+#: (kernel builds and cold first solves), not XLA's compiles
+PORT_HELP = {"volcano_solver_compile_total",
+             "volcano_solver_compile_seconds_total",
+             "volcano_compile_cache_hits_total"}
+
+
+def test_metric_families_match_the_jax_package():
+    """The port registers every metric family the JAX package does, no
+    other, each of the same type; its /metrics exposition has the same
+    ``# TYPE`` lines and the same ``# HELP`` lines but the compile
+    pipeline's."""
+    from volcano_tpu.metrics import metrics as j_metrics
+    from volcano_tpu_torch.metrics import metrics as t_metrics
+
+    def header(reg, tag):
+        out = {}
+        for line in reg.expose().splitlines():
+            if line.startswith(f"# {tag} "):
+                name, _, rest = line[len(tag) + 3:].partition(" ")
+                out[name] = rest
+        return out
+
+    jreg, treg = j_metrics.registry, t_metrics.registry
+    assert header(treg, "TYPE") == header(jreg, "TYPE")
+    jhelp, thelp = header(jreg, "HELP"), header(treg, "HELP")
+    assert set(thelp) == set(jhelp)
+    assert len(jhelp) >= 100
+    assert {n for n in jhelp if thelp[n] != jhelp[n]} == PORT_HELP
+    for name in ("volcano_sim_cycles_total", "volcano_sim_decisions_total",
+                 "volcano_sim_replay_divergences_total",
+                 "volcano_pod_schedule_errors",
+                 "volcano_pod_schedule_successes",
+                 "volcano_queue_pod_group_inqueue_count",
+                 "volcano_queue_pod_group_pending_count",
+                 "volcano_queue_pod_group_running_count",
+                 "volcano_queue_pod_group_unknown_count"):
+        assert name in thelp
+    assert volcano_tpu_torch.__version__ == "0.1.0"
+
+
 def test_no_port_file_imports_jax_or_the_jax_package():
     files = [p for p in PORT_DIR.rglob("*")
              if p.suffix in (".py", ".cu", ".cuh")]
@@ -148,6 +210,55 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
                                      p)
     assert res.assigned.device.type == "cpu"
     Scheduler(SchedulerCache(ClusterStore(), device="cpu")).run_once()
+    # the simulator and the standalone control plane: the same rule
+    from volcano_tpu_torch.sim import (
+        VirtualCluster, Workload, WorkloadSpec, run_sim, verify,
+    )
+    from volcano_tpu_torch.standalone import Standalone
+    wl = Workload(WorkloadSpec(seed=1, cycles=2, nodes=2))
+    for fn in (lambda: VirtualCluster(wl),
+               lambda: run_sim(workload=wl, cycles=2),
+               lambda: verify([], workload=wl, cycles=2),
+               lambda: Standalone(metrics_port=0)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn()
+    assert len(run_sim(workload=wl, cycles=2, device="cpu").lines) == 2
+    Standalone(metrics_port=0, device="cpu").stop()
+
+
+@pytest.mark.parametrize("argv", [
+    ["volcano_tpu_torch.sim", "--cycles", "2"],
+    ["volcano_tpu_torch.cli", "sim", "--cycles", "2"],
+    ["volcano_tpu_torch.standalone", "--metrics-port", "0"],
+], ids=["sim", "vcctl-sim", "standalone"])
+def test_module_entry_points_need_cuda_or_device_cpu(argv):
+    """The three ``-m`` entry points without ``--device`` raise on a host
+    with no CUDA device, and run with ``--device cpu`` (the standalone
+    until it is up)."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-m", *argv], cwd=str(REPO),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert "device='cpu'" in proc.stderr, proc.stderr[-2000:]
+    if argv[0].endswith("standalone"):
+        child = subprocess.Popen([sys.executable, "-m", *argv, "--device",
+                                  "cpu"], cwd=str(REPO), env=env,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+        try:
+            assert "standalone up" in child.stdout.readline()
+        finally:
+            child.terminate()
+            assert child.wait(timeout=60) == 0
+    else:
+        proc = subprocess.run([sys.executable, "-m", *argv, "--device",
+                               "cpu"], cwd=str(REPO), env=env,
+                              capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        assert "digest" in proc.stdout
 
 
 def test_read_store_raises_before_any_controller_is_built(monkeypatch):
@@ -240,6 +351,83 @@ def test_shard_workers_run_the_port_without_jax(tmp_path):
     for pid, argv in zip(out["pids"], out["argv"]):
         assert argv[1:3] == ["-m", "volcano_tpu_torch.client.shardproc"]
         assert (log / f"pid-{pid}").exists()  # the hook ran in the worker
+    assert sorted(p.name for p in log.iterdir()
+                  if p.name.startswith("bad-")) == []
+
+
+def test_entry_point_children_run_the_port_without_jax(tmp_path):
+    """``python -m volcano_tpu_torch.standalone --store-shard-procs`` and
+    the ``-m`` entry points driven against it: every process of the run
+    starts under an import hook that refuses jax and the JAX package, the
+    standalone's shard workers are ``python -m
+    volcano_tpu_torch.client.shardproc`` (their /proc/PID/cmdline), and
+    the cluster schedules a job."""
+    import time
+
+    from volcano_tpu_torch.client import RemoteClusterStore
+    from volcano_tpu_torch.models import Node
+
+    from test_torch_netha import free_port
+    hook, log = tmp_path / "hook", tmp_path / "log"
+    hook.mkdir()
+    log.mkdir()
+    (hook / "sitecustomize.py").write_text(REFUSE_JAX)
+    env = dict(os.environ, PYTHONPATH=f"{hook}{os.pathsep}{REPO}",
+               PORT_IMPORT_LOG=str(log))
+    addr = f"127.0.0.1:{free_port()}"
+    sa = subprocess.Popen(
+        [sys.executable, "-m", "volcano_tpu_torch.standalone",
+         "--serve-store", addr, "--store-shards", "2",
+         "--store-shard-procs", "--store-data-dir", str(tmp_path / "d"),
+         "--metrics-port", "0", "--period", "0.1", "--device", "cpu"],
+        cwd=str(REPO), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    remote = None
+    try:
+        line = sa.stdout.readline()
+        assert "standalone up" in line, line + sa.stdout.read()[-3000:]
+        remote = RemoteClusterStore(addr)
+        workers = remote._request({"op": "topology"})["workers"]
+        assert len(workers) == 2
+        for w in workers:
+            argv = open(f"/proc/{w['pid']}/cmdline", "rb").read() \
+                .decode().split("\0")
+            assert argv[1:3] == ["-m", "volcano_tpu_torch.client.shardproc"]
+            assert (log / f"pid-{w['pid']}").exists()
+        rl = {"cpu": "4", "memory": "8Gi", "pods": "110"}
+        remote.create("nodes", Node(name="n1", allocatable=dict(rl),
+                                    capacity=dict(rl)))
+        job = tmp_path / "job.yaml"
+        job.write_text(
+            "kind: Job\nmetadata: {name: j, namespace: default}\n"
+            "spec:\n  minAvailable: 1\n  tasks:\n  - name: w\n"
+            "    replicas: 1\n    template:\n      spec:\n"
+            "        containers:\n        - name: c\n"
+            "          requests: {cpu: \"1\"}\n")
+        cli = [sys.executable, "-m", "volcano_tpu_torch.cli", "--server",
+               addr]
+        for argv in (["job", "run", "-f", str(job)], ["status"]):
+            out = subprocess.run(cli + argv, cwd=str(REPO), env=env,
+                                 capture_output=True, text=True,
+                                 timeout=300)
+            assert out.returncode == 0, out.stderr[-2000:]
+        deadline = time.time() + 60
+        while time.time() < deadline and not all(
+                p.node_name for p in remote.list("pods") or [None]):
+            time.sleep(0.1)
+        assert [p.node_name for p in remote.list("pods")] == ["n1"]
+        out = subprocess.run(
+            [sys.executable, "-m", "volcano_tpu_torch.sim", "--cycles", "3",
+             "--device", "cpu", "--quiet"], cwd=str(REPO), env=env,
+            capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stderr[-2000:]
+    finally:
+        if remote is not None:
+            remote.close()
+        sa.terminate()
+        assert sa.wait(timeout=120) == 0
+    pids = {p.name for p in log.iterdir() if p.name.startswith("pid-")}
+    assert len(pids) >= 6  # standalone, 2 workers, 2 vcctl, sim
     assert sorted(p.name for p in log.iterdir()
                   if p.name.startswith("bad-")) == []
 

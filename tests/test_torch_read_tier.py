@@ -14,7 +14,7 @@ own request counters as the ground truth for "the tree absorbed it".
 
 ``TestChainObservability::test_replica_info_walks_upstream_chain`` holds
 the hop-by-hop walk the reference's ``vcctl status`` test renders (the
-CLI is not in the port yet). Replica processes are
+rendering itself is tests/test_torch_cli.py's). Replica processes are
 tests/test_torch_replica.py's ``replica`` role.
 
 Tolerance: exact (encoded objects, rvs, request counters, binds).

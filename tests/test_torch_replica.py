@@ -11,8 +11,9 @@ never-killed golden.
 
 ``TestRvBoundedReads::test_replica_reads_surface_applied_rv`` holds the
 wire read the reference's ``vcctl --replica --min-rv`` test makes (the
-CLI is not in the port yet). Replica processes are this file's
-``replica`` role (``python tests/test_torch_replica.py replica ...``),
+CLI's own case is tests/test_torch_cli.py's). Replica processes are this
+file's ``replica`` role (``python tests/test_torch_replica.py replica
+...``),
 the port's counterpart of tests/replica_proc.py; read-tier tests and the
 interop tests start them too.
 

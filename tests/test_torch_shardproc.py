@@ -17,9 +17,9 @@ from the in-process router for a router-only client); here it inherits
 the port's own suite, tests/test_torch_sharded_store.py.
 
 ``TestSupervision::test_status_ops_show_shard_map`` holds the wire data
-the reference's ``vcctl status`` test reads (store_info + topology): the
-CLI that renders it is not in the port yet. ``TestStandaloneShardProcs``
-waits for the port's standalone.
+the reference's ``vcctl status`` test reads (store_info + topology); the
+rendering is tests/test_torch_cli.py's and ``TestStandaloneShardProcs``
+tests/test_torch_standalone.py's.
 
 Tolerance: exact (objects, rvs, events, counts)."""
 

@@ -13,6 +13,7 @@ instances with the same seed apply the same mutations in the same order.
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 from typing import Dict, Optional
 
@@ -276,3 +277,46 @@ class Builders:
                        spec=m.QueueSpec(weight=weight,
                                         capability=capability or {},
                                         reclaimable=reclaimable))
+
+
+#: the store kinds a scheduler session reads, in the order a twin copies
+#: them (queues and classes before the jobs that name them)
+SESSION_KINDS = ("queues", "priorityclasses", "pvcs", "nodes", "podgroups",
+                 "pods")
+
+
+def jax_session_binds(port_store, tiers, configurations=(),
+                      actions=("allocate",)) -> dict:
+    """Run ``actions`` in one JAX-package session over a copy of
+    ``port_store`` (every object carried across by the wire codec the two
+    packages share byte for byte) on FakeBinder/FakeEvictor, with the
+    port's ``tiers`` and ``configurations`` rebuilt from the JAX
+    package's conf classes. Returns the JAX binds, keyed as
+    ``FakeBinder.binds`` is. The JAX solver runs jitted: these sessions
+    are small enough that no score tie parts the two arithmetics."""
+    from volcano_tpu.cache import FakeBinder, FakeEvictor, SchedulerCache
+    from volcano_tpu.client import ClusterStore
+    from volcano_tpu.client.codec import decode
+    from volcano_tpu.conf import Configuration, PluginOption, Tier
+    from volcano_tpu.framework import close_session, get_action, open_session
+    from volcano_tpu_torch.client.codec import encode
+
+    store = ClusterStore()
+    cache = SchedulerCache(store)
+    cache.binder, cache.evictor = FakeBinder(), FakeEvictor()
+    cache.run()
+    for kind in SESSION_KINDS:
+        for obj in port_store.list(kind):
+            twin = decode(encode(obj))
+            twin.resource_version = 0  # this store's own sequence
+            store.apply(kind, twin)
+    j_tiers = [Tier(plugins=[PluginOption(**{
+        f.name: getattr(p, f.name) for f in dataclasses.fields(p)})
+        for p in t.plugins]) for t in tiers]
+    j_confs = [Configuration(c.name, dict(c.arguments))
+               for c in configurations]
+    ssn = open_session(cache, j_tiers, j_confs)
+    for name in actions:
+        get_action(name).execute(ssn)
+    close_session(ssn)
+    return dict(cache.binder.binds)

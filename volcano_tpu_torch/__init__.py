@@ -13,3 +13,5 @@ mode the solve splits the node axis over a device mesh (``parallel``).
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``.
 """
+
+__version__ = "0.1.0"

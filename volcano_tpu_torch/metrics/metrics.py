@@ -184,6 +184,10 @@ task_scheduling_latency = registry.register(Histogram(
 schedule_attempts = registry.register(Counter(
     "volcano_schedule_attempts_total",
     "Number of attempts to schedule pods, by the result", ["result"]))
+pod_schedule_errors = registry.register(Counter(
+    "volcano_pod_schedule_errors", "Pods that failed to schedule"))
+pod_schedule_successes = registry.register(Counter(
+    "volcano_pod_schedule_successes", "Pods that scheduled"))
 unschedule_task_count = registry.register(Gauge(
     "volcano_unschedule_task_count", "Unschedulable task count", ["job_id"]))
 unschedule_job_count = registry.register(Gauge(
@@ -214,6 +218,14 @@ queue_weight = registry.register(Gauge(
     "volcano_queue_weight", "Weight of queue", ["queue_name"]))
 queue_overused = registry.register(Gauge(
     "volcano_queue_overused", "Whether queue is overused", ["queue_name"]))
+queue_pod_group_inqueue_count = registry.register(Gauge(
+    "volcano_queue_pod_group_inqueue_count", "Inqueue PodGroup count", ["queue_name"]))
+queue_pod_group_pending_count = registry.register(Gauge(
+    "volcano_queue_pod_group_pending_count", "Pending PodGroup count", ["queue_name"]))
+queue_pod_group_running_count = registry.register(Gauge(
+    "volcano_queue_pod_group_running_count", "Running PodGroup count", ["queue_name"]))
+queue_pod_group_unknown_count = registry.register(Gauge(
+    "volcano_queue_pod_group_unknown_count", "Unknown PodGroup count", ["queue_name"]))
 
 # -- compile pipeline (ops.precompile): kernel builds and cold first solves -
 
@@ -618,6 +630,18 @@ reschedule_intents_total = registry.register(Counter(
     "Migration-intent journal activity (recorded / confirmed / settled "
     "/ abandoned)", ["event"]))
 
+# -- cluster simulator metrics (sim/) ---------------------------------------
+
+sim_cycles_total = registry.register(Counter(
+    "volcano_sim_cycles_total",
+    "Virtual scheduling cycles executed by the cluster simulator"))
+sim_decisions_total = registry.register(Counter(
+    "volcano_sim_decisions_total",
+    "Decisions captured by the sim decision recorder", ["kind"]))
+sim_replay_divergences_total = registry.register(Counter(
+    "volcano_sim_replay_divergences_total",
+    "Golden-trace verifications that found a divergence"))
+
 # -- job / namespace metrics -----------------------------------------------
 
 job_share = registry.register(Gauge(
@@ -641,3 +665,4 @@ def update_queue_metrics(queue_name: str, allocated, request, deserved=None,
         queue_deserved_memory_bytes.set(deserved.memory, {"queue_name": queue_name})
     if share is not None:
         queue_share.set(share, {"queue_name": queue_name})
+

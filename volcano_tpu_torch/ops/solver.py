@@ -259,8 +259,13 @@ def drf_state(a, rank):
         max_incr = torch.amax(torch.where(eligible, incr_t, 0.0))
         step = torch.maximum(max_incr, 1.0 / (8.0 * n_elig))
         allowed = torch.maximum(share, m) + step                 # [J]
-        cum = _segment_prefix((incr_t * eligible)[:, None],
-                              j_seg_start)[:, 0] + incr_t
+        # the within-job prefix of dominant-share increments sums exactly
+        # (float64, rounded once): in float32 its rounding depends on the
+        # scan's order, which differs between the card's parallel cumsum
+        # and the host's sequential one, so the two devices could cap a
+        # job a task apart (ROADMAP Queue C)
+        cum = _segment_prefix((incr_t * eligible)[:, None], j_seg_start,
+                              exact=True)[:, 0] + incr_t
         # absolute comparison (share + cum vs allowed): subtracting share
         # from allowed first loses a float32 ulp and starves exact steps
         return eligible & (share[tj] + cum <= allowed[tj] + 1e-6)
