@@ -249,7 +249,48 @@ checkout, then, printing one JSON line per phase:
              the next cycle's end, that cycle's flatten and arena ship) and
              the r1 kill (to the leaf caught up, bootstraps by reason,
              fallbacks);
-21. sim    - the simulator (volcano_tpu_torch.sim) on bench.py
+21. fairshare - (this phase and the next run after the standalone phase,
+             while the card verifies the sim's trace; their plain-route
+             twins are three child processes, --role fairtwin,
+             fairhdrftwin and faulttwin, started together, each printing
+             a binds digest a cycle) fair share on the card at the cycle
+             cell's scale (2000 nodes of 32 cpu / 128Gi, the default
+             conf) away from friendly
+             numbers: six queues weighted 1:2:3:1:2:3, two whose
+             capability binds (cpu for f2, memory for f5), one cpu-heavy
+             and one memory-heavy, requests in mixed units (cpu 250m-3,
+             memory 1G-4Gi); a 1000-gang burst of 10-pod gangs, then 12
+             waves of 10 gangs. Checks: every cycle bind for bind against
+             a plain-route twin (device="cpu") with every kernel launch
+             held against the plain version, no queue past its
+             capability, no node past its allocatable, gangs whole, the
+             card's water_fill_deserved on the proportion plugin's inputs
+             equal to the plugin's host water fill within 1e-3; then
+             drf.enableHierarchy on tests/test_fairshare.py's ragged
+             weighted tree at BASELINE #5's scale (1000 nodes of 8 cpu,
+             500 gangs of 10 at 1-3 cpu, one steady cycle): the card's
+             binds and split equal to the plain route's;
+22. faults - the device-fault ladder on the card: the cycle cell (a
+             1000-gang burst, 12 waves of 10 gangs) beside a CPU twin that
+             skips allocate wherever the card's failed or was abandoned,
+             bind for bind. Armed in turn on the card only: slow_action
+             under a 0.5 s action deadline (allocate abandoned before it
+             starts), an order_event and a flatten_event drop (each falls
+             back with its typed reason), solver_dispatch asleep past the
+             deadline (abandoned mid-dispatch: the next cycle updates the
+             arena while it sleeps, and the thread, woken, stays out of
+             it: the arena equals its mirror), solver_dispatch once
+             (allocate_error, no host fallback, the breaker counts it, the
+             arena invalidated, backfill runs, the next cycle ships in
+             full), solver_dispatch three cycles running (the breaker
+             opens, the next cycle raises "circuit-broken"), then the
+             half-open probe closes it. Then evict_dispatch in a preempt
+             cycle (contained, no host fallback) and preempt and reclaim
+             with a PVC claimer beside the device claimers, each against
+             a CPU twin: the same evictions, the device claimers through
+             the eviction solves. At the end every pod bound once, gangs
+             whole, no node over its allocatable, the breaker closed;
+23. sim    - the simulator (volcano_tpu_torch.sim) on bench.py
              sim_quality()'s workload, not cut (seed 123, 500 cycles and
              a drain of 100, 22 nodes of 32 cpu, 6710 pods): each arm a
              child process (--role simarm) at once — solver, sharded and
@@ -269,7 +310,7 @@ checkout, then, printing one JSON line per phase:
              rest, launches; the reference's defrag trio and the cycle
              where the solver and sharded arms part (the round cap) are
              reported;
-22. standalone - the control plane in one process: (a) Standalone on the
+24. standalone - the control plane in one process: (a) Standalone on the
              card at the cycle cell's scale (2000 nodes, 20 of them with
              GPU cards), 1000 vcjobs as YAML through apply_job_yaml with
              20 required-affinity, 20 PVC and 20 shared-GPU jobs above and
@@ -284,7 +325,7 @@ checkout, then, printing one JSON line per phase:
              generated job through `python -m volcano_tpu_torch.cli`,
              every pod bound, `job list` and `status` over the wire, exit 0
              on SIGTERM;
-23. the kernels line, then the result line.
+25. the kernels line, then the result line.
 
 `--phases kernel,edges` runs a subset (device and build always run) and
 then prints neither of the last two lines.
@@ -1415,11 +1456,9 @@ def phase_cycle(dev, scale=None) -> dict:
     # the solves read views of the resident buffers and the scatters
     # write them in place: after the run they must still equal the
     # host mirror, chunk for chunk
-    dc = c.cache.device_cache
-    for dev_buf, host in ((dc._dev_f, dc._host_f), (dc._dev_i, dc._host_i)):
-        if not torch.equal(dev_buf.reshape(-1).cpu(), torch.from_numpy(host)):
-            raise AssertionError("the resident arena drifted from its "
-                                 "host mirror")
+    if not arena_equals_mirror(c.cache.device_cache):
+        raise AssertionError("the resident arena drifted from its host "
+                             "mirror")
     emit({"phase": "cycle", "regime": "steady", "cycles": len(rows),
           "arena_matches_mirror": True,
           "wave_pods": w * tpj, "running_pods": len(c.cache.binder.binds),
@@ -6070,10 +6109,705 @@ def phase_standalone(dev, scale=None) -> dict:
     return out
 
 
+# -- fair share on the card, away from friendly numbers ----------------------
+
+FAIRSHARE = dict(n_nodes=CYCLE["n_nodes"], n_jobs=CYCLE["n_jobs"],
+                 tasks_per_job=10, wave_jobs=10, waves=12,
+                 hdrf=dict(n_nodes=1000, n_jobs=500, steady_cycles=1))
+#: six queues 1:2:3:1:2:3 (name, weight, capability, profile): two whose
+#: capability binds (at about a third of their burst demand, cpu for f2,
+#: memory for f5), one cpu-heavy and one memory-heavy
+FAIR_QUEUES = (("f0", 1, None, "mixed"), ("f1", 2, None, "mixed"),
+               ("f2", 3, {"cpu": "800", "memory": "100Ti"}, "mixed"),
+               ("f3", 1, None, "cpu"), ("f4", 2, None, "memory"),
+               ("f5", 3, {"cpu": "100k", "memory": "900Gi"}, "mixed"))
+#: pod requests in mixed units, by queue profile: cpu 250m-3, memory 1G-4Gi
+FAIR_CPU = ("250m", "500m", "1", "1500m", "2", "3")
+FAIR_MEM = ("1G", "1500Mi", "2Gi", "3G", "4Gi")
+#: TestHDRFProgressiveParity's weighted tree (ragged: depths 2 and 3)
+FAIR_HIER = (("root/a", "10/8"), ("root/b", "10/2"),
+             ("root/c/x", "10/5/6"), ("root/c/y", "10/5/2"))
+#: TestWaterFillKernel's tolerance: the water fill against the host plugin
+FAIR_REL_TOL = 1e-3
+
+
+class FairCluster(StoreCluster):
+    """StoreCluster under FAIR_QUEUES: gang k goes to queue k % 6, its
+    pods' requests picked by the queue's profile in mixed units (the
+    cpu-heavy queue 1500m-3 cpu with 1G, the memory-heavy one 250m with
+    3G-4Gi, the rest every pair of FAIR_CPU x FAIR_MEM). Other ``queues``
+    ([(name, weight, annotations)]) take the ``heavy`` profile: 1-3 cpu,
+    so that BASELINE #5's 8-cpu nodes saturate and the tree decides."""
+
+    def __init__(self, dev, sc, queues=None, conf=None, cpu="32",
+                 mem="128Gi"):
+        self.profile = {name: prof for name, _, _, prof in FAIR_QUEUES}
+        super().__init__(dev, sc["n_nodes"], 0, sc["tasks_per_job"],
+                         cpu=cpu, mem=mem, conf=conf,
+                         queues=queues or [(n, w, None)
+                                           for n, w, _, _ in FAIR_QUEUES])
+        self.caps = {}
+        for name, _, cap, _ in FAIR_QUEUES if queues is None else ():
+            if cap:
+                q = self.store.get("queues", name)
+                q.spec.capability = dict(cap)
+                self.store.update("queues", q)
+                self.caps[name] = cap
+        self.submit(sc["n_jobs"])
+
+    def submit(self, n_jobs: int, cpu_per_pod: int = 0) -> list:
+        from volcano_tpu_torch.api.resource import parse_quantity
+        from volcano_tpu_torch.api.types import POD_GROUP_ANNOTATION
+        from volcano_tpu_torch.models import (
+            Pod, PodGroup, PodGroupPhase, PodGroupSpec, PodGroupStatus,
+        )
+        new = []
+        for _ in range(n_jobs):
+            k = self.k
+            self.k += 1
+            queue = self.queues[k % len(self.queues)]
+            prof = self.profile.get(queue, "heavy")
+            self.store.create("podgroups", PodGroup(
+                name=f"j{k}", namespace="bench",
+                spec=PodGroupSpec(min_member=self.tpj, queue=queue),
+                status=PodGroupStatus(phase=PodGroupPhase.PENDING)))
+            if prof == "cpu":
+                cpu, mem = FAIR_CPU[3 + (k // 6) % 3], "1G"
+            elif prof == "memory":
+                cpu, mem = "250m", FAIR_MEM[3 + (k // 6) % 2]
+            elif prof == "heavy":
+                j = k // len(self.queues)
+                cpu, mem = FAIR_CPU[2 + j % 4], FAIR_MEM[(j // 4) % 5]
+            else:
+                j = k // len(self.queues)
+                cpu = FAIR_CPU[j % len(FAIR_CPU)]
+                mem = FAIR_MEM[(j // len(FAIR_CPU)) % len(FAIR_MEM)]
+            keys = []
+            for i in range(self.tpj):
+                self.store.create("pods", Pod(
+                    name=f"j{k}-{i}", namespace="bench", phase="Pending",
+                    annotations={POD_GROUP_ANNOTATION: f"j{k}"},
+                    containers=[{"requests": {"cpu": cpu, "memory": mem}}]))
+                key = f"bench/j{k}-{i}"
+                keys.append(key)
+                self.req[key] = (parse_quantity(cpu), parse_quantity(mem),
+                                 0.0)
+            self.gangs[f"j{k}"] = keys
+            self.queue_of[f"j{k}"] = queue
+            new.append(f"j{k}")
+        return new
+
+    def check_caps(self, what: str) -> dict:
+        """Every capability-bound queue's bound pods within its
+        capability; returns each queue's bound cpu and memory."""
+        from volcano_tpu_torch.api.resource import parse_quantity
+        held = {q: [0.0, 0.0] for q in self.queues}
+        for key in self.cache.binder.binds:
+            h = held[self.queue_of[key.split("/")[1].rsplit("-", 1)[0]]]
+            h[0] += self.req[key][0]
+            h[1] += self.req[key][1]
+        for q, cap in self.caps.items():
+            if held[q][0] > parse_quantity(cap["cpu"]) \
+                    or held[q][1] > parse_quantity(cap["memory"]):
+                raise AssertionError(f"{what}: queue {q} holds {held[q]} "
+                                     f"past its capability {cap}")
+        return {q: {"cpu": c, "memory": m} for q, (c, m) in held.items()}
+
+
+def audited_cycle(x) -> dict:
+    """One cycle of ``x`` on the card with every kernel launch held
+    against the plain version."""
+    with KernelAudit() as a:
+        row = x.run_cycle()
+    row["audit"] = a.summary()["launches_checked"]
+    if row["audit"] != row["launches"]:
+        raise AssertionError(f"{row['launches']} launches, {row['audit']} "
+                             f"audited")
+    return row
+
+
+class TwinLines:
+    """The plain-route twin of a phase, a child process (--role
+    fairtwin / faulttwin) running the same script on device="cpu" beside
+    the card's run: each of its cycles' binds digest as a JSON line, read
+    here cycle by cycle."""
+
+    def __init__(self, role: str):
+        self.child = Child(role, ["--role", role])
+        self.role = role
+
+    def check(self, what: str, x) -> None:
+        want = self.child.wait_for(lambda line: line.get("cycle") == what,
+                                   3 * CHILD_TIMEOUT_S, what)
+        got = _binds_digest(list(x.cache.binder.binds.items()))
+        if (got, len(x.cache.binder.binds)) != (want["digest"],
+                                                 want["binds"]):
+            raise AssertionError(f"{self.role} {what}: the card's binds "
+                                 f"({len(x.cache.binder.binds)}, {got}) "
+                                 f"differ from the plain route's "
+                                 f"({want['binds']}, {want['digest']})")
+
+    def done(self) -> dict:
+        line = self.child.wait_for(lambda x: x.get("twin_done"),
+                                   3 * CHILD_TIMEOUT_S, "its end")
+        self.child.kill()
+        return line
+
+
+def twin_line(what: str, x) -> None:
+    """A twin child's line for one cycle: the binds digest and count."""
+    binds = x.cache.binder.binds
+    print(json.dumps({"cycle": what, "binds": len(binds),
+                      "digest": _binds_digest(list(binds.items()))}),
+          flush=True)
+
+
+def deserved_check(c) -> dict:
+    """The card's water_fill_deserved on the proportion plugin's own
+    inputs (weights, requests, capabilities, the cluster total) against
+    the plugin's host water fill, within FAIR_REL_TOL."""
+    from volcano_tpu_torch.framework import close_session, open_session
+    from volcano_tpu_torch.ops.solver import water_fill_deserved
+    ssn = open_session(c.cache, c.sched.tiers, c.sched.configurations)
+    try:
+        pp = ssn.plugins["proportion"]
+        names = sorted(pp.queue_opts)
+        opts = [pp.queue_opts[n] for n in names]
+
+        def vec(r):
+            return [r.milli_cpu, r.memory] if r is not None \
+                else [float("inf")] * 2
+        dev = c.cache.device
+        f32 = dict(dtype=torch.float32, device=dev)
+        total = torch.tensor(vec(pp.total_resource), **f32)
+        weight = torch.tensor([float(o.weight) for o in opts], **f32)
+        cap = torch.tensor([vec(o.capability) if o.capability is not None
+                            and not o.capability.is_empty() else vec(None)
+                            for o in opts], **f32)
+        req = torch.tensor([vec(o.request) for o in opts], **f32)
+        thr = torch.tensor([10.0, 1.0], **f32)
+        got = water_fill_deserved(total, weight, cap, req, thr,
+                                  max_iters=len(opts) + 1).cpu()
+        host = {n: vec(o.deserved) for n, o in zip(names, opts)}
+    finally:
+        close_session(ssn)
+    worst = 0.0
+    for i, n in enumerate(names):
+        for d in range(2):
+            want = host[n][d]
+            err = abs(float(got[i, d]) - want) / max(abs(want), 1.0)
+            worst = max(worst, err)
+            if err > FAIR_REL_TOL:
+                raise AssertionError(f"deserved of {n}[{d}]: card "
+                                     f"{float(got[i, d])}, host plugin "
+                                     f"{want}")
+    return {"queues": len(names), "max_rel_err": worst,
+            "deserved": {n: host[n] for n in names}}
+
+
+def fair_run(dev, sc, cycle, seen) -> dict:
+    """The fairshare script's first part on ``dev``: ``cycle(cluster)``
+    runs one cycle, ``seen(what, cluster, row)`` follows each. The card's
+    run and its plain-route twin (--role fairtwin) run this function."""
+    c = FairCluster(dev, sc)
+    rows = []
+    for w in range(-1, sc["waves"]):
+        what = "burst" if w < 0 else f"wave {w}"
+        if w >= 0:
+            c.submit(sc["wave_jobs"])
+        rows.append(cycle(c))
+        seen(what, c, rows[-1])
+    return {"cluster": c, "rows": rows}
+
+
+def fair_hdrf_run(dev, sc, cycle, seen) -> dict:
+    """The fairshare script's second part: drf.enableHierarchy on the
+    ragged weighted tree (its twin: --role fairhdrftwin)."""
+    hs = dict(HDRF, **sc["hdrf"])
+    hq = [(f"h{i}", 1, {"volcano.sh/hierarchy": h,
+                        "volcano.sh/hierarchy-weights": w})
+          for i, (h, w) in enumerate(FAIR_HIER)]
+    hc = FairCluster(dev, dict(sc, n_nodes=hs["n_nodes"],
+                               n_jobs=hs["n_jobs"]),
+                     queues=hq, conf=HDRF_CONF, cpu=hs["cpu"], mem=hs["mem"])
+    hrows = []
+    for s in range(-1, hs["steady_cycles"]):
+        if s >= 0:
+            binds = hc.cache.binder.binds
+            for g in [g for g, keys in hc.gangs.items()
+                      if all(k in binds for k in keys)][:hs["wave_jobs"]]:
+                hc.complete(g)
+            hc.submit(hs["wave_jobs"])
+        hrows.append(cycle(hc))
+        seen("hdrf burst" if s < 0 else f"hdrf cycle {s}", hc, hrows[-1])
+    return {"hdrf_rows": hrows, "split": queue_shares(hc, hs["n_nodes"])}
+
+
+def role_fairtwin(args) -> int:
+    """``--role fairtwin`` / ``fairhdrftwin``: fair_run / fair_hdrf_run on
+    device="cpu", a line a cycle."""
+    print(json.dumps(device_line(args.role)), flush=True)
+    run = fair_run if args.role == "fairtwin" else fair_hdrf_run
+    res = run("cpu", FAIRSHARE, lambda x: x.run_cycle(),
+              lambda what, x, row: twin_line(what, x))
+    print(json.dumps({"twin_done": True, "split": res.get("split")}),
+          flush=True)
+    return 0
+
+
+#: each of these phases' plain-route twins, a child process apiece,
+#: started together before the first of them so that their host work
+#: overlaps the card's cycles
+TWIN_ROLES = {"fairshare": ("fairtwin", "fairhdrftwin"),
+              "faults": ("faulttwin",)}
+
+
+def start_twins(phases) -> dict:
+    """The twins of ``phases``, all started before any first line is
+    awaited."""
+    twins = {role: TwinLines(role) for name in phases
+             for role in TWIN_ROLES.get(name, ())}
+    for twin in twins.values():
+        twin.child.first()
+    return twins
+
+
+def phase_fairshare(dev, scale=None, twins=None) -> dict:
+    """Fair share on the card away from friendly numbers: six queues
+    1:2:3:1:2:3, two capability-bound, one cpu-heavy and one memory-heavy,
+    requests in mixed units, at the cycle cell's scale (a 1000-gang burst
+    of 10-pod gangs, then 12 waves of 10 gangs) under the default conf,
+    every cycle bind for bind against a plain-route twin (a child); the
+    card's water fill against the host plugin's; then drf.enableHierarchy
+    on a ragged weighted tree at BASELINE #5's scale, the card's split
+    equal to the plain route's."""
+    sc = dict(FAIRSHARE, **(scale or {}))
+    twins = twins or start_twins(["fairshare"])
+
+    def seen_by(twin):
+        def seen(what, x, row):
+            twin.check(what, x)
+            x.check(f"fairshare {what}")
+            if x.caps:
+                row["queues"] = x.check_caps(f"fairshare {what}")
+            emit({"phase": "fairshare", "cycle": what, **row})
+        return seen
+
+    try:
+        res = fair_run(dev, sc, audited_cycle, seen_by(twins["fairtwin"]))
+        twins["fairtwin"].done()
+        hres = fair_hdrf_run(dev, sc, audited_cycle,
+                             seen_by(twins["fairhdrftwin"]))
+        done = twins["fairhdrftwin"].done()
+    finally:
+        for role in TWIN_ROLES["fairshare"]:
+            twins[role].child.kill()
+    c, rows, hrows = res["cluster"], res["rows"], hres["hdrf_rows"]
+    if hres["split"] != done["split"]:
+        raise AssertionError("fairshare hdrf: the card's split differs "
+                             "from the plain route's")
+    c.check_placement("fairshare", c.cache.binder.binds)
+    deserved = deserved_check(c)
+    steady = rows[1:]
+    out = {"phase": "fairshare", "regime": "summary",
+           "nodes": sc["n_nodes"],
+           "burst_cycle_ms": rows[0]["cycle_ms"],
+           "burst_binds": rows[0]["binds"],
+           "cycle_ms": cycle_stats(steady, "cycle_ms"),
+           "binds_per_cycle": [r["binds"] for r in steady],
+           "launches_per_cycle": [r["launches"] for r in rows],
+           "identical_to_plain_route": True,
+           "queues": c.check_caps("fairshare"), "capabilities": c.caps,
+           "deserved_vs_host_plugin": deserved,
+           "hdrf_tree": [list(x) for x in FAIR_HIER],
+           "hdrf_cycle_ms": [r["cycle_ms"] for r in hrows],
+           "hdrf_binds": [r["binds"] for r in hrows],
+           "hdrf_split": hres["split"]}
+    emit(out)
+    out["launches"] = sum(r["launches"] for r in rows + hrows)
+    if out["launches"] <= 0:
+        raise AssertionError("fairshare: no kernel launch")
+    return out
+
+
+# -- the device-fault ladder on the card --------------------------------------
+
+FAULTS = dict(n_nodes=CYCLE["n_nodes"], n_jobs=CYCLE["n_jobs"],
+              tasks_per_job=10, wave_jobs=10, waves=12, deadline_s=0.5,
+              delay_s=3.0, evict=dict(n_nodes=50, low_pods=800, gang=240))
+#: what each wave of the faults phase arms (the rest run clean)
+FAULT_PLAN = {1: "slow_action", 2: "order_event", 3: "flatten_event",
+              4: "abandon_dispatch", 6: "solver_dispatch",
+              8: "breaker", 9: "breaker", 10: "breaker", 11: "broken"}
+#: the typed reason each dropped event falls back with
+FAULT_REASON = {"order_event": "epoch_mismatch",
+                "flatten_event": "epoch_mismatch"}
+#: the default conf less allocate: the twin's cycle where the card's
+#: allocate failed or was abandoned
+SKIP_ALLOCATE_CONF = """
+actions: "enqueue, backfill"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+- plugins:
+  - name: drf
+  - name: predicates
+  - name: proportion
+  - name: nodeorder
+"""
+
+
+class ErrorLog:
+    """Collects the exceptions the Scheduler logs while contained."""
+
+    def __enter__(self):
+        import logging
+        self.errors = []
+        self._log = logging.getLogger("volcano_tpu_torch.scheduler")
+
+        class H(logging.Handler):
+            def emit(h, record):
+                if record.exc_info:
+                    self.errors.append(str(record.exc_info[1]))
+        self._h = H()
+        self._log.addHandler(self._h)
+        return self
+
+    def __exit__(self, *exc):
+        self._log.removeHandler(self._h)
+
+
+def _zombies() -> list:
+    import threading
+    return [th for th in threading.enumerate()
+            if th.name == "action-allocate"]
+
+
+#: the waves where the card's allocate fails or is abandoned: the twin's
+#: cycle there runs without allocate
+FAULT_SKIPS = {w for w, plan in FAULT_PLAN.items()
+               if plan not in ("order_event", "flatten_event")}
+
+
+def faults_run(dev, sc, seen) -> dict:
+    """The cycle cell with FAULT_PLAN's faults: armed on the card; on the
+    CPU (the twin, --role faulttwin) the same script with allocate left
+    out of the cycles in FAULT_SKIPS. ``seen(what, cluster, row)``
+    follows each cycle."""
+    from volcano_tpu_torch.resilience import (
+        ActionWatchdog, CircuitBreaker, faults,
+    )
+    card = torch.device(dev).type == "cuda"
+    n, j, tpj = sc["n_nodes"], sc["n_jobs"], sc["tasks_per_job"]
+    c = StoreCluster(dev, n, j, tpj)
+    clock = FakeClock()
+    c.cache.breaker = CircuitBreaker("device-solver", failure_threshold=3,
+                                     cooldown_s=10.0, clock=clock)
+    dc = c.cache.device_cache
+    default = c.sched._conf_text
+    rows = []
+
+    def cycle(what, arm=None, skip=False):
+        if not card:
+            if skip:
+                c.sched._conf_text = SKIP_ALLOCATE_CONF
+            try:
+                row = c.run_cycle()
+            finally:
+                c.sched._conf_text = default
+        else:
+            if arm is not None:
+                arm()
+            with ErrorLog() as errs:
+                row = audited_cycle(c)
+            tm = c.sched.last_cycle_timing
+            if tm.get("host_fallback") or tm.get("breaker_open"):
+                raise AssertionError(f"faults {what}: a host fallback on "
+                                     f"the CUDA arena")
+            row.update(errors=errs.errors, breaker=c.cache.breaker.state,
+                       arena_sessions=dc.sessions,
+                       arena_invalidations=dc.invalidations,
+                       **{k: tm[k] for k in ("allocate_timeout",
+                                             "order_fallback_reason",
+                                             "flatten_fallback_reason")
+                          if k in tm})
+        row["what"] = what
+        rows.append(row)
+        seen(what, c, row)
+        return row
+
+    def abandoned(what, arm):
+        c.sched._watchdog = ActionWatchdog(sc["deadline_s"], dump=False)
+        try:
+            row = cycle(what, arm)
+        finally:
+            c.sched._watchdog = None
+        if row.get("allocate_timeout") != 1.0 or "allocate_error" in row:
+            raise AssertionError(f"faults {what}: not abandoned")
+        return row
+
+    cycle("burst")
+    for w in range(sc["waves"]):
+        what = f"wave {w}"
+        plan = FAULT_PLAN.get(w)
+        if card and plan in ("order_event", "flatten_event"):
+            # the drop lands on the first delivery of the wave
+            faults.arm_once(plan)
+        c.submit(sc["wave_jobs"])
+        if not card:
+            cycle(what, skip=w in FAULT_SKIPS)
+        elif plan == "slow_action":
+            # abandoned before it starts (enqueue is call 1, allocate 2):
+            # the thread wakes after the deadline and never runs it
+            abandoned(what, lambda: faults.arm(
+                "slow_action", at=(2,), delay=sc["delay_s"], exc=None))
+        elif plan in ("order_event", "flatten_event"):
+            if faults.fired(plan) != 1:
+                raise AssertionError(f"faults {what}: {plan} not fired")
+            row = cycle(what)
+            reason = row.get(f"{plan.split('_')[0]}_fallback_reason")
+            if reason != FAULT_REASON[plan]:
+                raise AssertionError(f"faults {what}: {plan} dropped with "
+                                     f"reason {reason}")
+        elif plan == "abandon_dispatch":
+            # abandoned mid-dispatch: asleep in the dispatch past the
+            # deadline; the next cycle updates the arena while it sleeps
+            abandoned(what, lambda: faults.arm(
+                "solver_dispatch", at=(1,), delay=sc["delay_s"], exc=None))
+            zombie_sessions = dc.sessions
+        elif plan == "solver_dispatch":
+            row = cycle(what, lambda: faults.arm_once("solver_dispatch"))
+            if row.get("allocate_error") != 1.0 or row["binds"] \
+                    or c.cache.breaker._consecutive_failures != 1 \
+                    or "backfill_ms" not in row:
+                raise AssertionError(f"faults {what}: {row}")
+            invalidations = dc.invalidations
+        elif plan == "breaker":
+            row = cycle(what, lambda: faults.arm_once("solver_dispatch"))
+            if row.get("allocate_error") != 1.0:
+                raise AssertionError(f"faults {what}: {row}")
+        elif plan == "broken":
+            if c.cache.breaker.state != "open":
+                raise AssertionError("faults: the breaker did not open")
+            row = cycle(what)
+            if row.get("allocate_error") != 1.0 or not any(
+                    "circuit-broken" in e for e in row["errors"]):
+                raise AssertionError(f"faults {what}: {row}")
+        else:
+            row = cycle(what)
+            if w == 5:
+                # the mid-dispatch thread wakes, finds its epoch contained
+                # and leaves the arena as this cycle left it
+                for th in _zombies():
+                    th.join(2 * sc["delay_s"])
+                if dc.sessions != zombie_sessions + 1 or _zombies():
+                    raise AssertionError("faults: the abandoned dispatch "
+                                         "reached the arena")
+                if not arena_equals_mirror(dc):
+                    raise AssertionError("faults: the arena drifted from "
+                                         "its mirror after the abandoned "
+                                         "dispatch")
+            if w == 7 and (not row.get("arena_full_ship")
+                           or dc.invalidations != invalidations):
+                raise AssertionError(f"faults {what}: no full re-ship "
+                                     f"after the failed dispatch")
+    # the half-open probe after the cool-down closes the breaker
+    clock.t += 11.0
+    cycle("probe")
+    c.check("faults end", gangs=list(c.gangs))
+    if len(c.cache.binder.channel) != len(set(c.cache.binder.channel)):
+        raise AssertionError("faults: a pod bound twice")
+    if not card:
+        return {"rows": rows}
+    if c.cache.breaker.state != "closed":
+        raise AssertionError("faults: the probe did not close the breaker")
+    for th in _zombies():
+        th.join(2 * sc["delay_s"])
+    # an update a cycle whose allocate reached the arena, none from the
+    # abandoned threads
+    reached = sum(not r.get("allocate_error") and not r.get(
+        "allocate_timeout") for r in rows)
+    if _zombies() or dc.sessions != reached:
+        raise AssertionError(f"faults: {dc.sessions} arena updates in "
+                             f"{reached} cycles that reached it")
+    if not arena_equals_mirror(dc):
+        raise AssertionError("faults: the arena drifted from its mirror")
+    return {"rows": rows, "breaker_transitions": [
+        (frm, to) for _, frm, to in c.cache.breaker.transitions],
+        "launches": sum(r["launches"] for r in rows),
+        "pods_bound": len(c.cache.binder.binds)}
+
+
+def role_faulttwin(args) -> int:
+    """``--role faulttwin``: faults_run on device="cpu", a line a
+    cycle."""
+    print(json.dumps(device_line("faulttwin")), flush=True)
+    faults_run("cpu", FAULTS, lambda what, x, row: twin_line(what, x))
+    print(json.dumps({"twin_done": True}), flush=True)
+    return 0
+
+
+def pvc_job(c, name: str, queue: str, prio: str, n_pods: int, cpu: int,
+            mem_gi: int) -> None:
+    """A pending job of ``n_pods`` pods each naming its own claim: a
+    host-only job (volume binding), beside the device claimers."""
+    from volcano_tpu_torch.api.types import POD_GROUP_ANNOTATION
+    from volcano_tpu_torch.models import (
+        PersistentVolumeClaim, Pod, PodGroup, PodGroupSpec,
+    )
+    c.store.create("podgroups", PodGroup(
+        name=name, namespace="ev",
+        spec=PodGroupSpec(min_member=n_pods, queue=queue,
+                          priority_class_name=prio)))
+    c.jobs[name] = (queue, PRIORITY[prio], n_pods)
+    for i in range(n_pods):
+        claim = f"{name}-claim-{i}"
+        c.store.create("pvcs", PersistentVolumeClaim(name=claim,
+                                                     namespace="ev"))
+        c.store.create("pods", Pod(
+            name=f"{name}-{i}", namespace="ev", phase="Pending",
+            annotations={POD_GROUP_ANNOTATION: name},
+            containers=[{"requests": {"cpu": str(cpu),
+                                      "memory": f"{mem_gi}Gi"}}],
+            volumes=[{"name": "data", "persistentVolumeClaim": {
+                "claimName": claim}}]))
+        c.pods[f"ev/{name}-{i}"] = (name, float(cpu),
+                                    mem_gi * float(2 ** 30), "")
+
+
+def evict_pair(c, t, what: str, skip: str = "") -> dict:
+    """One eviction cycle on the card (its solves held against the same
+    solves on CPU tensors) and on the CPU twin, the twin skipping the
+    action ``skip``: the same evictions, pipelines and binds."""
+    from volcano_tpu_torch.ops import fused_choice as fc
+    ev, n_ev = c.cache.evictor.evicts, len(c.cache.evictor.evicts)
+    fc.fused_choice.launches = 0
+    with EvictAudit() as audit:
+        c.sched.run_once()
+    launches = fc.fused_choice.launches
+    tm = dict(c.sched.last_cycle_timing)
+    pipelined = list(c.recorder.last)
+    if skip:
+        t.sched._conf_text = EVICT_CONF.replace(f"{skip}, ", "")
+    try:
+        t.sched.run_once()
+    finally:
+        t.sched._conf_text = EVICT_CONF
+    if (ev, pipelined, c.cache.binder.binds) != (
+            t.cache.evictor.evicts, t.recorder.last, t.cache.binder.binds):
+        raise AssertionError(f"faults {what}: the card's evictions, "
+                             f"pipelines or binds differ from the twin's")
+    if tm.get("host_fallback"):
+        raise AssertionError(f"faults {what}: a host fallback on the card")
+    solves = audit.check()
+    return {"what": what, "evicts": ev[n_ev:], "pipelined": len(pipelined),
+            "launches": launches, "solves": [s["solve"] for s in solves],
+            **{k: v for k, v in tm.items()
+               if k.endswith(("_error", "_solve_ms")) or k in (
+                   "preempt_ms", "reclaim_ms", "backfill_ms")}}
+
+
+def faults_evict(dev, sc) -> dict:
+    """evict_dispatch armed in a preempt cycle on the card: the action is
+    contained (preempt_error, no host fallback, reclaim and backfill
+    still run), beside a twin that skips preempt there. Then per-job host
+    routing: a PVC claimer beside the device claimers, in preempt and in
+    reclaim, on the card and on the CPU twin: the same evictions, the
+    device claimers' through the eviction solve."""
+    from volcano_tpu_torch.resilience import faults
+    n = sc["n_nodes"]
+
+    def preempt_cluster(d):
+        x = EvictCluster(d, n, EVICT["cpu"], EVICT["mem"], [("q0", None)])
+        x.job("low", "q0", "low-priority", 1, sc["low_pods"], 1, 2,
+              nodes=[f"n{i % n}" for i in range(sc["low_pods"])])
+        x.job("high", "q0", "high-priority", sc["gang"], sc["gang"], 2, 4)
+        pvc_job(x, "pvc", "q0", "high-priority", 2, 2, 4)
+        return x
+
+    c, t = preempt_cluster(dev), preempt_cluster("cpu")
+    faults.arm_once("evict_dispatch")
+    rows = [evict_pair(c, t, "preempt evict_dispatch", skip="preempt")]
+    r = rows[-1]
+    if r.get("preempt_error") != 1.0 or r["evicts"] \
+            or "backfill_ms" not in r or faults.fired("evict_dispatch") != 1:
+        raise AssertionError(f"faults: evict_dispatch not contained: {r}")
+    rows.append(evict_pair(c, t, "preempt with a PVC claimer"))
+    r = rows[-1]
+    pvc = {k for k, v in c.pods.items() if v[0] == "pvc"}
+    if not r["evicts"] or "solve_evict_uniform" not in r["solves"] \
+            or not pvc & {k for k, _ in c.recorder.last}:
+        raise AssertionError(f"faults: per-job routing in preempt: {r}")
+    c = EvictCluster(dev, n, EVICT["cpu"], EVICT["mem"],
+                     [("a", True), ("b", None)])
+    t = EvictCluster("cpu", n, EVICT["cpu"], EVICT["mem"],
+                     [("a", True), ("b", None)])
+    for x in (c, t):
+        for j in range(sc["low_pods"] // 10):
+            x.job(f"a{j}", "a", "low-priority", 1, 10, 1, 2,
+                  nodes=[f"n{(j * 10 + i) % n}" for i in range(10)])
+        for j in range(sc["gang"] // 40):
+            x.job(f"b{j}", "b", "high-priority", 1, 10, 2, 4)
+        pvc_job(x, "pvc", "b", "high-priority", 2, 2, 4)
+    rows.append(evict_pair(c, t, "reclaim with a PVC claimer"))
+    r = rows[-1]
+    if not r["evicts"] or "solve_evict" not in r["solves"] \
+            or not pvc & {k for k, _ in c.recorder.last}:
+        raise AssertionError(f"faults: per-job routing in reclaim: {r}")
+    for row in rows:
+        emit({"phase": "faults", "part": "evict", **{
+            k: (len(v) if k == "evicts" else v) for k, v in row.items()}})
+    return {"rows": rows, "launches": sum(r["launches"] for r in rows)}
+
+
+def phase_faults(dev, scale=None, twin=None) -> dict:
+    """The device-fault ladder on the card (faults_run) beside its
+    skip-allocate twin (a child), then the eviction faults and per-job
+    host routing (faults_evict)."""
+    from volcano_tpu_torch.resilience import faults
+    sc = dict(FAULTS, **(scale or {}))
+    faults.reset()
+    twin = twin or start_twins(["faults"])["faulttwin"]
+
+    def seen(what, x, row):
+        twin.check(what, x)
+        x.check_placement(f"faults {what}", x.cache.binder.binds)
+        emit({"phase": "faults", "cycle": what, **row})
+
+    try:
+        ladder = faults_run(dev, sc, seen)
+        twin.done()
+        evict = faults_evict(dev, dict(EVICT, **sc["evict"]))
+    finally:
+        twin.child.kill()
+        faults.reset()
+    out = {"phase": "faults", "regime": "summary",
+           "cycles": len(ladder["rows"]),
+           "allocate_errors": sum(bool(r.get("allocate_error"))
+                                  for r in ladder["rows"]),
+           "allocate_timeouts": sum(bool(r.get("allocate_timeout"))
+                                    for r in ladder["rows"]),
+           "breaker_transitions": ladder["breaker_transitions"],
+           "pods_bound": ladder["pods_bound"],
+           "identical_to_skip_twin": True,
+           "launches": ladder["launches"] + evict["launches"]}
+    emit(out)
+    if out["launches"] <= 0:
+        raise AssertionError("faults: no kernel launch")
+    return out
+
+
+def arena_equals_mirror(dc) -> bool:
+    return all(torch.equal(d.reshape(-1).cpu(), torch.from_numpy(h))
+               for d, h in ((dc._dev_f, dc._host_f),
+                            (dc._dev_i, dc._host_i)))
+
+
 PHASES = ("kernel", "edges", "small", "solve", "profile", "cycle", "hdrf",
           "evict", "sequential", "sharded", "reschedule", "prewarm",
           "sidecar", "failover", "lifecycle", "netstore", "netha",
-          "netshard", "sim", "standalone")
+          "netshard", "sim", "standalone", "fairshare", "faults")
 
 
 def main() -> int:
@@ -6092,12 +6826,16 @@ def main() -> int:
                          "each arm this way)")
     ap.add_argument("--role", choices=("store", "scheduler",
                                        "shardprimary", "replica", "simarm",
-                                       "simverify", "standalonetwin"),
+                                       "simverify", "standalonetwin",
+                                       "fairtwin", "fairhdrftwin",
+                                       "faulttwin"),
                     help="run as a child of the netstore / netha / "
-                         "netshard / sim / standalone phases (role_store, "
+                         "netshard / fairshare / faults / sim / standalone "
+                         "phases (role_store, "
                          "role_scheduler, role_shardprimary, role_replica, "
                          "role_simarm, role_simverify, "
-                         "role_standalonetwin)")
+                         "role_standalonetwin, role_fairtwin, "
+                         "role_faulttwin)")
     ap.add_argument("--data-dir")
     ap.add_argument("--port", type=int, default=0)
     ap.add_argument("--seed", choices=("bound",))
@@ -6144,6 +6882,10 @@ def main() -> int:
         return role_simverify(args)
     if args.role == "standalonetwin":
         return role_standalonetwin(args)
+    if args.role in ("fairtwin", "fairhdrftwin"):
+        return role_fairtwin(args)
+    if args.role == "faulttwin":
+        return role_faulttwin(args)
     if args.prewarm_arm:
         print(json.dumps(prewarm_arm(dev, args.prewarm_arm == "on",
                                      PREWARM)), flush=True)
@@ -6176,15 +6918,28 @@ def main() -> int:
     if "netshard" in phases:
         out["netshard"] = run("netshard", phase_netshard, dev, None,
                               out.get("netstore"))
-    # the standalone phase runs while the card verifies the sim's trace
+    # the standalone, fairshare and faults phases run while the card
+    # verifies the sim's trace; the last two start their plain-route twins
+    # together once the standalone phase (which times its turns) is done
     sim = run("sim_start", SimPhase(dev).start) if "sim" in phases \
         else None
+    twins = {}
     try:
         if "standalone" in phases:
             out["standalone"] = run("standalone", phase_standalone, dev)
+        twins = run("twins", start_twins, [
+            p for p in ("fairshare", "faults") if p in phases])
+        if "fairshare" in phases:
+            out["fairshare"] = run("fairshare", phase_fairshare, dev,
+                                   None, twins)
+        if "faults" in phases:
+            out["faults"] = run("faults", phase_faults, dev, None,
+                                twins["faulttwin"])
         if sim is not None:
             out["sim"] = run("sim", sim.finish)
     finally:
+        for twin in twins.values():
+            twin.child.kill()
         if sim is not None:
             sim.kill()
     emit({"phase": "seconds", **seconds})
@@ -6208,9 +6963,10 @@ def main() -> int:
     # processes' leader and shadow cycles (each child counts from 0 at its
     # start and reports its total), the netshard scheduler's cycles over
     # the read tier (its twin's apart), the sim's card arms (its children
-    # and the vcctl child's in-process twin) and the standalone's turns on
-    # the card (its CPU twin's apart), each counted from 0 (the sequential
-    # mode launches no kernel)
+    # and the vcctl child's in-process twin), the standalone's turns on
+    # the card (its CPU twin's apart), and the fair-share and fault-ladder
+    # cycles on the card (their CPU twins launch none), each counted from
+    # 0 (the sequential mode launches no kernel)
     cycle_rows = [cyc["burst"]] + cyc["steady"]
     evict_launches = sum(r["launches"] + r["next_cycle_launches"]
                          for r in evict)
@@ -6230,11 +6986,14 @@ def main() -> int:
             "netha": out["netha"]["launches"],
             "netshard": out["netshard"]["launches"],
             "sim": out["sim"]["launches"],
-            "standalone": out["standalone"]["launches"]}
+            "standalone": out["standalone"]["launches"],
+            "fairshare": out["fairshare"]["launches"],
+            "faults": out["faults"]["launches"]}
     if min(ring.values()) <= 0:
         raise AssertionError(f"a path of the outer ring, the lifecycle, "
-                             f"the network, the sim or the standalone "
-                             f"launched no kernel: {ring}")
+                             f"the network, the sim, the standalone, fair "
+                             f"share or the fault ladder launched no "
+                             f"kernel: {ring}")
     emit({"kernels": [{
         "name": "fused_choice", "route": "cuda",
         "source": "volcano_tpu_torch/csrc/fused_choice.cu",
@@ -6268,6 +7027,8 @@ def main() -> int:
         "launches_sim": ring["sim"],
         "launches_standalone": ring["standalone"],
         "launches_standalone_twin": out["standalone"]["twin_launches"],
+        "launches_fairshare": ring["fairshare"],
+        "launches_faults": ring["faults"],
         "launches_headline_solve": main_launches,
         "max_abs_err": max(r["max_abs_err"]
                            for r in krows + [shard_k, resched_k]),

@@ -6,7 +6,8 @@ on the CPU.
 - The in-process scenarios of tests/test_failover.py (lease fencing at
   the store, the bind-intent journal, the two failover smokes, the shadow
   cycle, the standby loop, the elector's edge cases) and of
-  tests/test_ha_observability.py (TestLeaderElection, TestSchedulerHA):
+  tests/test_ha_observability.py (TestLeaderElection, TestSchedulerHA,
+  TestAssertUtil):
   each scenario runs once through each package on a store of its own
   models, and what it observes (writes fenced or not, sweeps, reconcile
   summaries, binds, leadership logs) must be the same. The failover
@@ -785,3 +786,17 @@ def test_sharded_dispatch_retry(monkeypatch, faults, outcome):
     timing = c.sched.last_cycle_timing
     assert timing["arena_mode"] == "sharded"
     assert "host_fallback" not in timing
+
+
+class TestAssertUtil:
+    """tests/test_ha_observability.py's TestAssertUtil through each
+    package's ``utils``: the same raises and messages."""
+
+    @pytest.mark.parametrize("pkg", ("jax", "torch"))
+    def test_raises_by_default(self, pkg):
+        u = pkg_mod(pkg, "utils")
+        u.assert_(True, "fine")
+        with pytest.raises(u.AssertionFailed, match="boom"):
+            u.assert_(False, "boom")
+        with pytest.raises(u.AssertionFailed, match="x=3"):
+            u.assertf(False, "x=%d", 3)

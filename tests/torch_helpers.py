@@ -285,38 +285,105 @@ SESSION_KINDS = ("queues", "priorityclasses", "pvcs", "nodes", "podgroups",
                  "pods")
 
 
-def jax_session_binds(port_store, tiers, configurations=(),
-                      actions=("allocate",)) -> dict:
-    """Run ``actions`` in one JAX-package session over a copy of
-    ``port_store`` (every object carried across by the wire codec the two
-    packages share byte for byte) on FakeBinder/FakeEvictor, with the
-    port's ``tiers`` and ``configurations`` rebuilt from the JAX
-    package's conf classes. Returns the JAX binds, keyed as
-    ``FakeBinder.binds`` is. The JAX solver runs jitted: these sessions
-    are small enough that no score tie parts the two arithmetics."""
+def _jax_copy(obj):
+    """A JAX-package copy of a port object, by the wire codec the two
+    packages share byte for byte, with no resource version (the copy
+    takes its store's own sequence)."""
+    from volcano_tpu.client.codec import decode
+    from volcano_tpu_torch.client.codec import encode
+    twin = decode(encode(obj))
+    twin.resource_version = 0
+    return twin
+
+
+def jax_cache(port_store):
+    """A JAX-package SchedulerCache on FakeBinder/FakeEvictor over a copy
+    of ``port_store``'s session kinds."""
     from volcano_tpu.cache import FakeBinder, FakeEvictor, SchedulerCache
     from volcano_tpu.client import ClusterStore
-    from volcano_tpu.client.codec import decode
-    from volcano_tpu.conf import Configuration, PluginOption, Tier
-    from volcano_tpu.framework import close_session, get_action, open_session
-    from volcano_tpu_torch.client.codec import encode
 
-    store = ClusterStore()
-    cache = SchedulerCache(store)
+    cache = SchedulerCache(ClusterStore())
     cache.binder, cache.evictor = FakeBinder(), FakeEvictor()
     cache.run()
     for kind in SESSION_KINDS:
         for obj in port_store.list(kind):
-            twin = decode(encode(obj))
-            twin.resource_version = 0  # this store's own sequence
-            store.apply(kind, twin)
+            cache.cluster.apply(kind, _jax_copy(obj))
+    return cache
+
+
+def jax_conf(tiers, configurations=()):
+    """The port's ``tiers`` and ``configurations`` rebuilt from the JAX
+    package's conf classes."""
+    from volcano_tpu.conf import Configuration, PluginOption, Tier
+
     j_tiers = [Tier(plugins=[PluginOption(**{
         f.name: getattr(p, f.name) for f in dataclasses.fields(p)})
         for p in t.plugins]) for t in tiers]
     j_confs = [Configuration(c.name, dict(c.arguments))
                for c in configurations]
-    ssn = open_session(cache, j_tiers, j_confs)
+    return j_tiers, j_confs
+
+
+def jax_open_session(port_store, tiers, configurations=()):
+    """(cache, session) of the JAX package over a copy of ``port_store``,
+    opened with the port's ``tiers`` and ``configurations``."""
+    from volcano_tpu.framework import open_session
+
+    cache = jax_cache(port_store)
+    return cache, open_session(cache, *jax_conf(tiers, configurations))
+
+
+def jax_session_binds(port_store, tiers, configurations=(),
+                      actions=("allocate",)) -> dict:
+    """Run ``actions`` in one JAX-package session over a copy of
+    ``port_store`` (every object carried across by the wire codec the two
+    packages share byte for byte) on FakeBinder/FakeEvictor, with the
+    port's ``tiers`` and ``configurations``. Returns the JAX binds, keyed
+    as ``FakeBinder.binds`` is. The JAX solver runs jitted: these sessions
+    are small enough that no score tie parts the two arithmetics."""
+    from volcano_tpu.framework import close_session, get_action
+
+    cache, ssn = jax_open_session(port_store, tiers, configurations)
     for name in actions:
         get_action(name).execute(ssn)
     close_session(ssn)
     return dict(cache.binder.binds)
+
+
+class JaxTwin:
+    """A JAX-package Scheduler on FakeBinder/FakeEvictor over its own
+    store, which follows every write made to the port's store outside a
+    cycle (codec copies). ``cycle(sched)`` runs one cycle of the port's
+    Scheduler, then one of the twin's, with the following paused, so each
+    package's cycle writes only its own store; it returns the twin's
+    cycle timing. ``kwargs`` go to the twin's Scheduler (its conf)."""
+
+    def __init__(self, port_store, kinds=SESSION_KINDS, **kwargs):
+        from volcano_tpu.scheduler import Scheduler
+
+        self.cache = jax_cache(port_store)
+        self.store = self.cache.cluster
+        self._paused = False
+        for kind in kinds:
+            port_store.watch(kind, self._follower(kind), replay=False)
+        self.sched = Scheduler(self.cache, **kwargs)
+
+    def _follower(self, kind):
+        def follow(event, obj, old):
+            if self._paused:
+                return
+            if event == "delete":
+                self.store.delete(kind, obj.name,
+                                  getattr(obj, "namespace", None))
+            else:
+                self.store.apply(kind, _jax_copy(obj))
+        return follow
+
+    def cycle(self, port_sched) -> dict:
+        self._paused = True
+        try:
+            port_sched.run_once()
+            self.sched.run_once()
+        finally:
+            self._paused = False
+        return self.sched.last_cycle_timing

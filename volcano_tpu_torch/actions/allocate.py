@@ -225,7 +225,7 @@ class AllocateAction(Action):
 
         from ..ops import flatten_snapshot, solve_allocate
 
-        from ..resilience import faults
+        from ..resilience import ActionContained, faults
 
         timing = ssn.solver_options.setdefault("timing", {})
         breaker = getattr(ssn, "breaker", None)
@@ -414,40 +414,43 @@ class AllocateAction(Action):
                 timing["pack_ms"] = (_time.perf_counter() - t1) * 1e3
                 sdc = self._sharded_arena(ssn)
                 fault_dc = sdc
-                t1 = _time.perf_counter()
-                bufs = sdc.update(fbuf, ibuf, layout)
-                params = sdc.params_device(params)
-                timing["delta_plan_ms"] = (_time.perf_counter() - t1) * 1e3
-                timing["delta_chunks"] = float(sdc.last_shipped_chunks)
-                timing["arena_mode"] = "sharded"
-                timing["arena_bytes_shipped"] = \
-                    float(sdc.last_shipped_bytes)
-                timing["arena_full_ship"] = float(sdc.last_full_ship)
-                timing["arena_shard_bytes"] = \
-                    [float(b) for b in sdc.last_shard_bytes]
-                pw = getattr(ssn, "prewarmer", None)
-                if pw is not None and pw.mesh is None:
-                    # a sharded session pre-warms the sharded solve too
-                    pw.mesh = sdc.mesh
-                # the inputs the bucket prewarmer re-lays into the next
-                # bucket (ops.precompile)
-                sdc.last_solve_flags = dict(layout=layout, **solve_kw)
-                sdc.last_solve_inputs = (fbuf, ibuf, host_params)
-                # the sharded solve always runs the overflow phases under
-                # queue caps: it takes no work_conserving flag
-                kw = {k: v for k, v in solve_kw.items()
-                      if k != "work_conserving"}
-                t1 = _time.perf_counter()
-                # one re-send of a transport failure (never of a CUDA
-                # error, resilience.transient). update() already
-                # scattered: the retry re-dispatches on the updated arena,
-                # and a failure that stays reaches the fallback below,
-                # which invalidates it
-                res = retry_transient(
-                    lambda: solve_allocate_sharded_arena(
-                        *bufs, params, sdc.mesh, **kw),
-                    what="sharded solver dispatch")
-                timing["dispatch_ms"] = (_time.perf_counter() - t1) * 1e3
+                with sdc.fenced(ssn):
+                    t1 = _time.perf_counter()
+                    bufs = sdc.update(fbuf, ibuf, layout)
+                    params = sdc.params_device(params)
+                    timing["delta_plan_ms"] = \
+                        (_time.perf_counter() - t1) * 1e3
+                    timing["delta_chunks"] = float(sdc.last_shipped_chunks)
+                    timing["arena_mode"] = "sharded"
+                    timing["arena_bytes_shipped"] = \
+                        float(sdc.last_shipped_bytes)
+                    timing["arena_full_ship"] = float(sdc.last_full_ship)
+                    timing["arena_shard_bytes"] = \
+                        [float(b) for b in sdc.last_shard_bytes]
+                    pw = getattr(ssn, "prewarmer", None)
+                    if pw is not None and pw.mesh is None:
+                        # a sharded session pre-warms the sharded solve
+                        pw.mesh = sdc.mesh
+                    # the inputs the bucket prewarmer re-lays into the
+                    # next bucket (ops.precompile)
+                    sdc.last_solve_flags = dict(layout=layout, **solve_kw)
+                    sdc.last_solve_inputs = (fbuf, ibuf, host_params)
+                    # the sharded solve always runs the overflow phases
+                    # under queue caps: it takes no work_conserving flag
+                    kw = {k: v for k, v in solve_kw.items()
+                          if k != "work_conserving"}
+                    t1 = _time.perf_counter()
+                    # one re-send of a transport failure (never of a CUDA
+                    # error, resilience.transient). update() already
+                    # scattered: the retry re-dispatches on the updated
+                    # arena, and a failure that stays reaches the fallback
+                    # below, which invalidates it
+                    res = retry_transient(
+                        lambda: solve_allocate_sharded_arena(
+                            *bufs, params, sdc.mesh, **kw),
+                        what="sharded solver dispatch")
+                    timing["dispatch_ms"] = \
+                        (_time.perf_counter() - t1) * 1e3
             elif sidecar is not None:
                 # process boundary: ship the packed snapshot to the solver
                 # sidecar (which owns the card) and replay its
@@ -480,26 +483,32 @@ class AllocateAction(Action):
                 t1 = _time.perf_counter()
                 fbuf, ibuf, layout = arr.packed()
                 timing["pack_ms"] = (_time.perf_counter() - t1) * 1e3
-                params = dc.params_device(params)
-                # the inputs the bucket prewarmer re-lays into the next
-                # bucket (ops.precompile)
-                dc.last_solve_flags = dict(layout=layout, **solve_kw)
-                dc.last_solve_inputs = (fbuf, ibuf, host_params)
-                t1 = _time.perf_counter()
-                f2d, i2d = dc.update(fbuf, ibuf, layout)
-                timing["delta_plan_ms"] = (_time.perf_counter() - t1) * 1e3
-                timing["delta_chunks"] = float(dc.last_shipped_chunks)
-                timing["arena_mode"] = "packed"
-                timing["arena_bytes_shipped"] = float(dc.last_shipped_bytes)
-                timing["arena_full_ship"] = float(dc.last_full_ship)
-                t1 = _time.perf_counter()
-                res = solve_allocate_packed2d(f2d, i2d, layout, params,
-                                              **solve_kw)
-                timing["dispatch_ms"] = (_time.perf_counter() - t1) * 1e3
+                with dc.fenced(ssn):
+                    params = dc.params_device(params)
+                    # the inputs the bucket prewarmer re-lays into the
+                    # next bucket (ops.precompile)
+                    dc.last_solve_flags = dict(layout=layout, **solve_kw)
+                    dc.last_solve_inputs = (fbuf, ibuf, host_params)
+                    t1 = _time.perf_counter()
+                    f2d, i2d = dc.update(fbuf, ibuf, layout)
+                    timing["delta_plan_ms"] = \
+                        (_time.perf_counter() - t1) * 1e3
+                    timing["delta_chunks"] = float(dc.last_shipped_chunks)
+                    timing["arena_mode"] = "packed"
+                    timing["arena_bytes_shipped"] = \
+                        float(dc.last_shipped_bytes)
+                    timing["arena_full_ship"] = float(dc.last_full_ship)
+                    t1 = _time.perf_counter()
+                    res = solve_allocate_packed2d(f2d, i2d, layout, params,
+                                                  **solve_kw)
+                    timing["dispatch_ms"] = \
+                        (_time.perf_counter() - t1) * 1e3
             else:
                 dev = getattr(ssn.cache, "device", None)
                 res = solve_allocate(arr.device_dict(dev), params,
                                      device=dev, **solve_kw)
+        except ActionContained:
+            raise  # abandoned: not a device fault
         except Exception:
             log.exception("solver dispatch failed; resetting the device "
                           "cache")

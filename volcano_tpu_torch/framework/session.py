@@ -14,6 +14,7 @@ through exactly these Allocate/Pipeline/Evict primitives.
 from __future__ import annotations
 
 import logging
+import threading
 import uuid
 from typing import Callable, Dict, List, Optional
 
@@ -153,12 +154,32 @@ class Session:
         self._open_statements: Dict[int, object] = {}
         self._action_epoch = 0
         self._contained_epochs: set = set()
+        # an action running on a watchdog thread pins its own epoch: the
+        # loop's _action_epoch moves on when the action is abandoned
+        self._epoch_pin = threading.local()
         # decision-trace seam (sim.recorder.DecisionRecorder): when the
         # cache carries a recorder, close_session hands it the finished
         # session so pipeline statements and per-job FitErrors reach the
         # trace; binds/evicts are captured at the effector boundary
         # (cache.RecordingBinder/RecordingEvictor)
         self.decision_recorder = getattr(cache, "decision_recorder", None)
+
+    def pin_action_epoch(self, epoch: int) -> None:
+        """Bind ``epoch`` to the calling thread (a watchdog's action
+        thread), so its statements and fences keep the epoch it started
+        with after the loop has moved on."""
+        self._epoch_pin.epoch = epoch
+
+    def current_epoch(self) -> int:
+        """The calling thread's action epoch: its pinned one, else the
+        loop's."""
+        return getattr(self._epoch_pin, "epoch", self._action_epoch)
+
+    def action_contained(self) -> bool:
+        """Whether the calling thread's action was abandoned and contained
+        (its deadline passed): what it does from now on must not reach
+        the cluster or the device arena."""
+        return self.current_epoch() in self._contained_epochs
 
     # ------------------------------------------------------------------
     # registration API used by plugins (session_plugins.go:26-118)

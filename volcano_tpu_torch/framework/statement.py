@@ -50,7 +50,7 @@ class Statement:
         # epoch guard turns that late commit into a discard so nothing an
         # abandoned action decided reaches the cluster (see
         # resilience/watchdog.py).
-        self._epoch = getattr(ssn, "_action_epoch", 0)
+        self._epoch = ssn.current_epoch()
 
     # -- evict --------------------------------------------------------------
 

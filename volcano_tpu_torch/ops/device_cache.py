@@ -35,6 +35,8 @@ Accounting (``last_shipped_bytes``: a full ship's buffer bytes, or
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -89,6 +91,8 @@ class PackedDeviceCache:
         self.invalidations = 0          # soft resets (dispatch failures)
         self.params_repins = 0          # device params re-uploaded
         self.total_shipped_bytes = 0
+        #: held across one session's update and solve (``fenced``)
+        self.lock = threading.Lock()
 
     # -- arena introspection -------------------------------------------
 
@@ -130,6 +134,21 @@ class PackedDeviceCache:
         self._layout = None  # forces the full re-ship
         self._params_suspect = True
         self.invalidations += 1
+
+    @contextlib.contextmanager
+    def fenced(self, ssn):
+        """Hold the arena for one session's ``update`` and solve. The
+        thread of an action the watchdog abandoned never enters once its
+        epoch is contained (ActionContained), and one already inside
+        finishes before the next session's update starts: the in-place
+        scatters of two cycles never interleave, so the device buffers
+        keep equal to the mirror."""
+        from ..resilience.watchdog import ActionContained
+        with self.lock:
+            if ssn.action_contained():
+                raise ActionContained(
+                    "an abandoned action reached the device arena")
+            yield
 
     # -- mirror maintenance --------------------------------------------
 

@@ -18,7 +18,8 @@ the same semantics:
   ``amax``, ``include_self=True``) starting from the reduction's identity
   (``+inf`` for floats, the int32 extremes for ints), as JAX's do, so an
   empty segment reads the same value; ``segment_sum`` becomes
-  ``index_add_``;
+  ``index_add_`` (float sums accumulated in float64 and rounded once, so
+  the card and the host round alike: ROADMAP Queue C);
 - sorts are stable (``jnp.lexsort`` / ``jnp.argsort`` are).
 
 Contract notes (as in the JAX package):
@@ -46,8 +47,8 @@ import torch
 
 from .arrays import bucket
 from .solver import (
-    INF, INT32_MAX, _lexsort, _scatter_set, _segment_any, _segment_min,
-    _segment_prefix, _segment_sum,
+    INF, INT32_MAX, _exact_sum, _lexsort, _scatter_set, _segment_any,
+    _segment_min, _segment_prefix, _segment_sum,
 )
 
 
@@ -223,10 +224,8 @@ def _hdrf_core(a, rank):
 
     def tree_state(jobres):
         """(share[H], sat[H]) after the bottom-up weighted recursion."""
-        alloc = torch.zeros((H, total.shape[0]), dtype=torch.float32,
-                            device=dev)
-        alloc.index_add_(0, job_leaf, a["job_drf_allocated"] + jobres)
-        total_alloc = a["hdrf_total_allocated"] + torch.sum(jobres, dim=0)
+        alloc = _segment_sum(a["job_drf_allocated"] + jobres, job_leaf, H)
+        total_alloc = a["hdrf_total_allocated"] + _exact_sum(jobres, 0)
         demanding = (total_alloc < total)[None, :]            # [1,R]
         return recursion(alloc, demanding, parent, depth, is_leaf,
                          leaf_req, H)
@@ -245,12 +244,12 @@ def _hdrf_core(a, rank):
         """(share[H], sat[H], share_full[H]) — tree_state evaluated at both
         allocations in one fused recursion."""
         R_ = total.shape[0]
-        alloc = torch.zeros((2 * H, R_), dtype=torch.float32, device=dev)
-        alloc.index_add_(0, job_leaf, a["job_drf_allocated"] + jobres)
-        alloc.index_add_(0, job_leaf + H,
-                         a["job_drf_allocated"] + jobres_full)
-        ta_a = a["hdrf_total_allocated"] + torch.sum(jobres, dim=0)
-        ta_b = a["hdrf_total_allocated"] + torch.sum(jobres_full, dim=0)
+        alloc = _segment_sum(
+            torch.cat([a["job_drf_allocated"] + jobres,
+                       a["job_drf_allocated"] + jobres_full]),
+            torch.cat([job_leaf, job_leaf + H]), 2 * H)
+        ta_a = a["hdrf_total_allocated"] + _exact_sum(jobres, 0)
+        ta_b = a["hdrf_total_allocated"] + _exact_sum(jobres_full, 0)
         demanding = torch.cat([
             (ta_a < total)[None, :].expand(H, R_),
             (ta_b < total)[None, :].expand(H, R_)])
@@ -336,9 +335,8 @@ def _hdrf_core(a, rank):
                                  0.0, grow_j)
             # allowed key growth -> raw-units budget via the subtree's
             # mean slope over its whole round-entry backlog
-            node_full = torch.zeros(H, dtype=torch.float32, device=dev) \
-                .index_add_(0, anc_jc,
-                            torch.where(present_j, job_full, 0.0))
+            node_full = _segment_sum(torch.where(present_j, job_full, 0.0),
+                                     anc_jc, H)
             denom_j = key_full[anc_jc] - key[anc_jc]
             full_j = node_full[anc_jc]
             budget_j = torch.where(

@@ -103,9 +103,22 @@ def _lexsort(keys):
 
 
 def _segment_sum(vals, idx, n: int):
-    out = torch.zeros((n,) + tuple(vals.shape[1:]), dtype=vals.dtype,
+    """jax.ops.segment_sum. A float sum accumulates in float64 and rounds
+    once: the card's ``index_add_`` adds in no fixed order, so float32
+    partial sums would round apart from the host's sequential ones
+    (ROADMAP Queue C); the flatten's requests are integers, which the
+    float64 sum holds exactly."""
+    acc = torch.float64 if vals.is_floating_point() else vals.dtype
+    out = torch.zeros((n,) + tuple(vals.shape[1:]), dtype=acc,
                       device=vals.device)
-    return out.index_add_(0, idx, vals)
+    return out.index_add_(0, idx, vals.to(acc)).to(vals.dtype)
+
+
+def _exact_sum(vals, dim: int):
+    """``torch.sum`` of float32 ``vals`` over ``dim`` accumulated in
+    float64 and rounded once: the same bits on the card and the host,
+    whatever order each reduces in (see _segment_sum)."""
+    return torch.sum(vals.to(torch.float64), dim=dim).to(vals.dtype)
 
 
 def _segment_min(vals, idx, n: int, fill):
@@ -194,7 +207,7 @@ def water_fill_deserved(total, weight, cap, request, thr, max_iters: int):
         deserved = torch.where(meet[:, None], deserved, clamped)
         meet = meet | cap_viol | req_less
         remaining = torch.clamp(
-            remaining - torch.sum(deserved - old, dim=0), min=0.0)
+            remaining - _exact_sum(deserved - old, 0), min=0.0)
         it += 1
     return deserved
 
@@ -313,7 +326,8 @@ def _queue_cap_mask(eligible, task_queue, req, qrem, thr, scalar_mask,
     s_fits_alone = le_fits(s_req_raw, s_rem, thr, scalar_mask,
                            ignore_req=s_req_raw) & s_act
     s_req = s_req_raw * s_fits_alone[:, None]
-    prefix = _segment_prefix(s_req, q_seg_start)
+    # exact, as drf_cap's: a float32 scan rounds by the device's order
+    prefix = _segment_prefix(s_req, q_seg_start, exact=True)
     ok_sorted = le_fits(prefix + s_req, s_rem, thr, scalar_mask,
                         ignore_req=s_req) & s_fits_alone
     return _scatter_set(q_perm, ok_sorted)
@@ -352,7 +366,7 @@ def _herd_mean(eligible, fit_req, scalar_mask):
     """The eligible tasks' mean request [R], and the dims where it is
     significant."""
     n_elig = torch.clamp(torch.sum(eligible), min=1)
-    mean_req = torch.sum(fit_req * eligible[:, None], dim=0) / n_elig  # [R]
+    mean_req = _exact_sum(fit_req * eligible[:, None], 0) / n_elig  # [R]
     return mean_req, mean_req > torch.where(scalar_mask, 10.0, 0.0)
 
 

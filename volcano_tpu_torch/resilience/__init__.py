@@ -30,11 +30,11 @@ from .overload import (
 )
 from .recovery import BindIntentJournal, reconcile_bind_intents
 from .transient import TRANSIENT_MARKERS, is_transient, retry_transient
-from .watchdog import ActionTimeout, ActionWatchdog
+from .watchdog import ActionContained, ActionTimeout, ActionWatchdog
 
-__all__ = ["ActionTimeout", "ActionWatchdog", "AdmissionGate",
-           "BindIntentJournal", "CircuitBreaker", "FaultError",
-           "FaultInjector", "LaneStore", "OverloadedError", "RetryBudget",
+__all__ = ["ActionContained", "ActionTimeout", "ActionWatchdog",
+           "AdmissionGate", "BindIntentJournal", "CircuitBreaker",
+           "FaultError", "FaultInjector", "LaneStore", "OverloadedError", "RetryBudget",
            "RetryBudgetExhausted", "classify", "faults", "parse_lane_spec",
            "reconcile_bind_intents", "TRANSIENT_MARKERS", "is_transient",
            "retry_transient"]

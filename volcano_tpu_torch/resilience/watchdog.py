@@ -17,7 +17,11 @@ where an operator's crash tooling collects it) and raises
 
 The abandoned thread is daemonic and eventually dies with its blocking
 call; until then it may still read session state — the epoch guard is
-what keeps it from *writing through* to the cluster. True isolation
+what keeps it from *writing through* to the cluster. The thread pins its
+epoch (``Session.pin_action_epoch``): an action abandoned before it
+started never starts, and one abandoned mid-dispatch stops at the device
+arena's fence (``PackedDeviceCache.fenced``), whose lock also makes the
+next cycle wait for a thread already scattering into the arena. True isolation
 needs a process boundary (the solver sidecar provides one for the
 biggest hang source, the device dispatch); this watchdog covers the
 in-process rest.
@@ -39,6 +43,11 @@ log = logging.getLogger(__name__)
 
 class ActionTimeout(Exception):
     """An action exceeded its deadline and was contained."""
+
+
+class ActionContained(Exception):
+    """The thread of a contained action reached a fence (the device
+    arena): it stops there, touching nothing."""
 
 
 class ActionWatchdog:

@@ -279,14 +279,22 @@ class Scheduler:
         slow_action fault point lets the chaos harness simulate a hang."""
         from .resilience import faults
 
+        epoch = ssn._action_epoch
+
         def run():
             faults.fire("slow_action")
+            if epoch in ssn._contained_epochs:
+                return  # abandoned while it waited: never starts
             action.execute(ssn)
 
         if self._watchdog is None:
             run()
         else:
-            self._watchdog.run(action.name(), run)
+            def pinned():
+                ssn.pin_action_epoch(epoch)
+                run()
+
+            self._watchdog.run(action.name(), pinned)
 
     #: timing keys exported per cycle as the volcano_session_phase_ms
     #: gauge — the cycle's flatten/upload/solve/replay decomposition
