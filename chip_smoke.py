@@ -325,7 +325,32 @@ checkout, then, printing one JSON line per phase:
              generated job through `python -m volcano_tpu_torch.cli`,
              every pod bound, `job list` and `status` over the wire, exit 0
              on SIGTERM;
-25. the kernels line, then the result line.
+25. deploy - installer_torch/docker-compose.yaml's two command lines as
+             written (paths and ports re-pointed under build/, a loopback
+             --serve-store added): the control plane (--device cpu
+             --sidecar) first, the solver sidecar 5 s later on an empty
+             kernel build directory (nvcc); 2000 nodes, 3 queues and 1000
+             vcjobs over the wire and the example jobs through `vcctl
+             --server` while it builds. Checks: no pod bound before the
+             sidecar is ready; every pod bound, gangs whole, no node over
+             its allocatable; every binding turn solved through the
+             sidecar on the card (the control plane's own `sidecar turn`
+             lines); a CUDA context (the device files) and the kernel
+             library mapped in the sidecar only; the binds equal to the
+             same command line with the solver in process over a store
+             seeded alike; /healthz,
+             the Prometheus template's series, admission over mutual TLS
+             (a signed client served, a self-signed one refused); three
+             waves, the sidecar SIGKILLed in one until the breaker opens,
+             then restarted: the gap binds nothing, typed, and the first
+             card cycle ships in full; SIGTERM, exit 0, the socket gone;
+             then the pod restarted behind a SIGKILLed sidecar: the
+             control plane, over a copy of the seeded store, runs cycles
+             against the dead socket before any reply (nothing bound,
+             `sidecar_unavailable`), the restarted sidecar removes that
+             socket before it builds, and its first answer binds on the
+             card with a full ship; SIGTERM, exit 0;
+26. the kernels line, then the result line.
 
 `--phases kernel,edges` runs a subset (device and build always run) and
 then prints neither of the last two lines.
@@ -2790,7 +2815,7 @@ def connect_sidecar(proc, sock: str, timeout: float = 180.0):
         if proc.poll() is not None:
             raise AssertionError(f"the sidecar exited {proc.returncode}:\n"
                                  f"{proc.stdout.read()[-3000:]}")
-        client = SidecarSolver(sock)
+        client = SidecarSolver(sock, device="cuda")
         try:
             client._connect()
             return client
@@ -6798,6 +6823,778 @@ def phase_faults(dev, scale=None, twin=None) -> dict:
     return out
 
 
+# -- the deployed process table on the card (installer_torch/) ---------------
+
+DEPLOY = dict(n_nodes=CYCLE["n_nodes"], n_jobs=CYCLE["n_jobs"],
+              tasks_per_job=10, sidecar_delay_s=5.0, waves=3, wave_jobs=10,
+              kill_wave=1)
+DEPLOY_COMPOSE = os.path.join("installer_torch", "docker-compose.yaml")
+#: the series installer_torch's Prometheus template names
+DEPLOY_SERIES = ("volcano_e2e_scheduling_latency_milliseconds",
+                 "volcano_schedule_attempts_total", "volcano_queue_")
+DEPLOY_EXAMPLES = ("mpi-job.yaml", "tensorflow-job.yaml")
+
+
+def compose_commands() -> dict:
+    """{service: (argv, env)} as the committed compose file runs them."""
+    import shlex
+
+    import yaml
+    with open(os.path.join(REPO, DEPLOY_COMPOSE)) as f:
+        services = yaml.safe_load(f)["services"]
+    return {name: (shlex.split(svc["command"]),
+                   {k: str(v) for k, v in
+                    (svc.get("environment") or {}).items()})
+            for name, svc in services.items()}
+
+
+def repoint(argv, paths: dict, flags: dict) -> list:
+    """``argv`` with this interpreter for ``python``, each path of
+    ``paths`` replaced and each flag of ``flags`` given its value; raises
+    when one of them is not there (the compose file changed)."""
+    out = [sys.executable if a == "python" else paths.get(a, a)
+           for a in argv]
+    for flag, value in flags.items():
+        if flag not in out:
+            raise AssertionError(f"{DEPLOY_COMPOSE}: no {flag} in {argv}")
+        out[out.index(flag) + 1] = value
+    missing = [p for p in paths if p not in argv]
+    if missing:
+        raise AssertionError(f"{DEPLOY_COMPOSE}: {missing} not in {argv}")
+    return out
+
+
+class Proc:
+    """A child process with its output lines read on a thread, each with
+    the host clock's time it arrived."""
+
+    def __init__(self, name: str, argv: list, env: dict):
+        import threading
+        self.name = name
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(argv, cwd=REPO, env=env,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+        self.lines: list = []   # (perf_counter, line)
+        self.cv = threading.Condition()
+        threading.Thread(target=self._read, daemon=True,
+                         name=f"proc-{name}").start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            with self.cv:
+                self.lines.append((time.perf_counter(), line.rstrip("\n")))
+                self.cv.notify_all()
+        with self.cv:
+            self.cv.notify_all()
+
+    def find(self, pred):
+        """The first (time, line) with ``pred(line)`` so far, or None."""
+        with self.cv:
+            return next(((t, x) for t, x in self.lines if pred(x)), None)
+
+    def tail(self) -> str:
+        with self.cv:
+            return "\n".join(x for _, x in self.lines[-40:])
+
+    def wait_line(self, pred, timeout: float, what: str) -> tuple:
+        """The first (time, line) with ``pred(line)``."""
+        deadline = time.time() + timeout
+        with self.cv:
+            while True:
+                for t, x in self.lines:
+                    if pred(x):
+                        return t, x
+                if self.proc.poll() is not None:
+                    self.cv.wait(0.2)
+                    if not any(pred(x) for _, x in self.lines):
+                        raise AssertionError(
+                            f"{self.name} exited {self.proc.returncode} "
+                            f"before {what}:\n{self.tail()}")
+                left = deadline - time.time()
+                if left <= 0:
+                    raise AssertionError(f"{self.name}: no {what} in "
+                                         f"{timeout} s:\n{self.tail()}")
+                self.cv.wait(min(left, 0.5))
+
+    def maps(self) -> str:
+        with open(f"/proc/{self.proc.pid}/maps") as f:
+            return f.read()
+
+    def cmdline(self) -> list:
+        with open(f"/proc/{self.proc.pid}/cmdline", "rb") as f:
+            return f.read().decode().split("\0")[1:3]
+
+    def terminate(self, timeout: float = 60.0) -> int:
+        import signal
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            return self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise AssertionError(f"{self.name} did not exit on SIGTERM:\n"
+                                 + self.tail())
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=30)
+
+
+def full_ship_chunks(row, n_nodes: int) -> int:
+    """The fewest chunks a full ship of a turn's packed arena takes, from
+    its request's bytes: less the parameters (four scalars, a weight per
+    resource kind, 64 at most, and the static score of each node of the
+    node axis's bucket; float32), over the sidecar arena's chunk of
+    4-byte values. A delta ships only the chunks that changed."""
+    import inspect
+
+    from volcano_tpu_torch.ops.arrays import bucket
+    from volcano_tpu_torch.ops.device_cache import PackedDeviceCache
+    chunk = inspect.signature(PackedDeviceCache).parameters["chunk"].default
+    values = row["sidecar_request_bytes"] / 4 - 4 - 64 - bucket(n_nodes)
+    return int(-(-values // chunk))
+
+
+def turn_lines(cp) -> list:
+    """The control plane's ``sidecar turn`` lines: (time, row)."""
+    with cp.cv:
+        return [(t, json.loads(x.split("sidecar turn ", 1)[1]))
+                for t, x in cp.lines if "sidecar turn " in x]
+
+
+def openssl(*argv) -> None:
+    subprocess.run(["openssl", *argv], check=True, capture_output=True,
+                   timeout=120, stdin=subprocess.DEVNULL)
+
+
+def deploy_certs(tmp: str) -> dict:
+    """A CA made here, a client certificate it signed, and a self-signed
+    one, with the openssl binary."""
+    p = {k: os.path.join(tmp, k) for k in (
+        "ca.crt", "ca.key", "client.key", "client.csr", "client.crt",
+        "rogue.key", "rogue.crt")}
+    openssl("req", "-x509", "-newkey", "rsa:2048", "-nodes", "-days", "1",
+            "-subj", "/CN=deploy-phase-ca", "-keyout", p["ca.key"],
+            "-out", p["ca.crt"])
+    openssl("req", "-newkey", "rsa:2048", "-nodes", "-subj",
+            "/CN=deploy-client", "-keyout", p["client.key"], "-out",
+            p["client.csr"])
+    openssl("x509", "-req", "-in", p["client.csr"], "-CA", p["ca.crt"],
+            "-CAkey", p["ca.key"], "-CAcreateserial", "-days", "1",
+            "-out", p["client.crt"])
+    openssl("req", "-x509", "-newkey", "rsa:2048", "-nodes", "-days", "1",
+            "-subj", "/CN=deploy-client", "-keyout", p["rogue.key"],
+            "-out", p["rogue.crt"])
+    return p
+
+
+def admission_mtls(addr: str, certs: dict) -> dict:
+    """A queue validation over the admission server: served for the
+    client the phase's CA signed, refused at the TLS layer for a
+    self-signed one."""
+    import ssl
+    import urllib.error
+    import urllib.request
+    review = json.dumps({"request": {"operation": "CREATE", "object": {
+        "name": "mtls-q", "spec": {"weight": 2}}}}).encode()
+
+    def post(cert, key):
+        ctx = ssl.create_default_context()
+        ctx.check_hostname = False
+        ctx.verify_mode = ssl.CERT_NONE
+        ctx.load_cert_chain(cert, key)
+        req = urllib.request.Request(
+            f"https://{addr}/queues/validate", data=review,
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, context=ctx, timeout=30) as resp:
+            return json.loads(resp.read())
+
+    body = post(certs["client.crt"], certs["client.key"])
+    if body["response"]["allowed"] is not True:
+        raise AssertionError(f"deploy: the signed client was refused: "
+                             f"{body}")
+    try:
+        post(certs["rogue.crt"], certs["rogue.key"])
+    except urllib.error.HTTPError as e:
+        raise AssertionError(f"deploy: a self-signed client reached "
+                             f"admission: {e}") from e
+    except (ssl.SSLError, urllib.error.URLError, ConnectionError) as e:
+        return {"signed_client": "allowed",
+                "self_signed_client": f"refused: {type(e).__name__}"}
+    raise AssertionError("deploy: a self-signed client reached admission")
+
+
+def http_get(url: str) -> tuple:
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=30) as resp:
+        return resp.status, resp.read().decode()
+
+
+def deploy_jobs(first: int, n: int, tpj: int) -> list:
+    """Jobs ``first`` .. ``first + n - 1`` of the cycle cell as vcjobs
+    (the lifecycle phase's shape): ``tpj`` pods, minAvailable ``tpj``,
+    cpu 1-3, memory 1-4 Gi, queues q0-q2 in turn."""
+    from volcano_tpu_torch.models import Job, JobSpec, TaskSpec
+    out = []
+    for k in range(first, first + n):
+        cpu, mem = 1 + (k // 3) % 3, 1 + k % 4
+        out.append(("jobs", Job(name=f"vj{k}", namespace="bench", spec=JobSpec(
+            min_available=tpj, queue=f"q{k % 3}",
+            tasks=[TaskSpec(name="worker", replicas=tpj, template={
+                "spec": {"containers": [{"name": "c", "requests": {
+                    "cpu": str(cpu), "memory": f"{mem}Gi"}}]}})]))))
+    return out
+
+
+def deploy_base(n_nodes: int) -> list:
+    from volcano_tpu_torch.models import Node, Queue, QueueSpec
+    rl = {"cpu": "32", "memory": "128Gi", "pods": "110"}
+    return ([("queues", Queue(name=f"q{i}", spec=QueueSpec(weight=i + 1)))
+             for i in range(3)]
+            + [("nodes", Node(name=f"n{i}", allocatable=dict(rl),
+                              capacity=dict(rl))) for i in range(n_nodes)])
+
+
+def example_jobs() -> list:
+    """The two example vcjobs as ``vcctl job run -f`` creates them."""
+    import yaml
+
+    from volcano_tpu_torch.cli.vcctl import _job_from_yaml
+    out = []
+    for name in DEPLOY_EXAMPLES:
+        with open(os.path.join(REPO, "example", name)) as f:
+            out.append(("jobs", _job_from_yaml(yaml.safe_load(f))))
+    return out
+
+
+def seed_data_dir(path: str, sc: dict) -> None:
+    """What the deployed control plane's store holds at its first turn,
+    written beforehand by the port's DurableClusterStore behind the same
+    admission, in the same order: the default queue, the queues and
+    nodes, the example jobs, the vcjobs."""
+    from volcano_tpu_torch.client import DurableClusterStore
+    from volcano_tpu_torch.models import Queue, QueueSpec
+    from volcano_tpu_torch.webhooks import start_webhooks
+    store = DurableClusterStore(path, fsync="off")
+    start_webhooks(store)
+    try:
+        # as the control plane's cache creates it at its start
+        store.create("queues", Queue(name="default",
+                                     spec=QueueSpec(weight=1)))
+        res = store.bulk_apply([(k, o, "create")
+                                for k, o in deploy_base(sc["n_nodes"])])
+        for kind, job in example_jobs():
+            store.create(kind, job)
+        res += store.bulk_apply([(k, o, "create") for k, o in deploy_jobs(
+            0, sc["n_jobs"], sc["tasks_per_job"])])
+        bad = [r for r in res if isinstance(r, Exception)]
+        if bad:
+            raise AssertionError(f"deploy seed: {bad[0]}")
+    finally:
+        store.close()
+
+
+def placement(remote, n_jobs: int, tpj: int) -> dict:
+    """Every pod bound, each vcjob's gang whole, no node past its
+    allocatable (cpu, memory, pods). Returns {ns/pod: node}."""
+    from volcano_tpu_torch.api import Resource
+    from volcano_tpu_torch.api.job_info import get_pod_resource_request
+    pods = remote.list("pods")
+    nodes = {n.name: n for n in remote.list("nodes")}
+    binds = {f"{p.namespace}/{p.name}": p.node_name for p in pods}
+    unbound = [k for k, v in binds.items() if not v]
+    if unbound:
+        raise AssertionError(f"deploy: {len(unbound)} pods unbound, e.g. "
+                             f"{unbound[:3]}")
+    per_job: dict = {}
+    used: dict = {}
+    for p in pods:
+        if p.namespace == "bench":
+            job = p.name.rsplit("-", 2)[0]
+            per_job[job] = per_job.get(job, 0) + 1
+        used.setdefault(p.node_name, []).append(get_pod_resource_request(p))
+    if len(per_job) != n_jobs or set(per_job.values()) != {tpj}:
+        raise AssertionError(f"deploy: gangs not whole: "
+                             f"{sorted(set(per_job.values()))}, "
+                             f"{len(per_job)} jobs")
+    for name, reqs in used.items():
+        alloc = Resource.from_resource_list(nodes[name].allocatable)
+        if not Resource.sum_of(reqs).less_equal(alloc) \
+                or len(reqs) > int(nodes[name].allocatable["pods"]):
+            raise AssertionError(f"deploy: node {name} over its "
+                                 f"allocatable")
+    return binds
+
+
+def wait_bound(remote, want: int, timeout: float, what: str,
+               proc=None) -> float:
+    """Polls until ``want`` pods are bound; returns the host clock then."""
+    deadline = time.time() + timeout
+    n = 0
+    while time.time() < deadline:
+        n = sum(1 for p in remote.list("pods") if p.node_name)
+        if n >= want:
+            return time.perf_counter()
+        time.sleep(0.1)
+    raise AssertionError(f"deploy {what}: {n} of {want} pods bound in "
+                         f"{timeout} s" + (f":\n{proc.tail()}" if proc
+                                           else ""))
+
+
+def deploy_twin(cp_argv, env, data_dir: str, port: int, want: int,
+                timeout: float) -> dict:
+    """The compose file's control plane with the solver in process on
+    the card (``--device cuda``, no ``--sidecar``) over the seeded data
+    dir; its binds once ``want`` pods are bound."""
+    from volcano_tpu_torch.client import RemoteClusterStore
+    argv = list(cp_argv)
+    i = argv.index("--sidecar")
+    del argv[i:i + 2]
+    argv[argv.index("--device") + 1] = "cuda"
+    addr = f"127.0.0.1:{port}"
+    argv += ["--serve-store", addr, "--store-data-dir", data_dir,
+             "--store-fsync", "off"]
+    twin_env = {k: v for k, v in env.items() if k != "CUDA_VISIBLE_DEVICES"}
+    cp = Proc("twin control plane", argv, twin_env)
+    remote = None
+    try:
+        cp.wait_line(lambda x: "standalone up" in x, CHILD_TIMEOUT_S, "up")
+        remote = RemoteClusterStore(addr)
+        t0 = time.perf_counter()
+        wait_bound(remote, want, CHILD_TIMEOUT_S, "twin", cp)
+        binds = {f"{p.namespace}/{p.name}": p.node_name
+                 for p in remote.list("pods")}
+        remote.close()
+        remote = None
+        rc = cp.terminate()
+        if rc != 0:
+            raise AssertionError(f"deploy twin exited {rc}:\n{cp.tail()}")
+        return {"binds": binds, "bound_ms": (time.perf_counter() - t0) * 1e3}
+    finally:
+        if remote is not None:
+            remote.close()
+        cp.kill()
+
+
+def deploy_restart(cp_argv, cp_env, sc_argv, sc_env, sock: str,
+                   data_dir: str, port: int, want: int, sc: dict,
+                   procs: list) -> dict:
+    """The pod restarted behind a sidecar killed by SIGKILL: its socket
+    file stays in the shared volume. The control plane, over a copy of the
+    seeded data dir, starts against it and runs cycles before any reply;
+    they bind nothing and carry ``sidecar_unavailable``. The restarted
+    sidecar removes the dead socket before it builds, the first cycle it
+    answers ships the whole arena and binds on the card, then every pod
+    is bound; SIGTERM stops both with exit 0. Its processes join
+    ``procs``."""
+    import re
+    import signal
+
+    from volcano_tpu_torch.client import RemoteClusterStore
+    path = os.path.join(REPO, sock)
+    listening = lambda x: "listening on" in x  # noqa: E731
+    side = Proc("sidecar", sc_argv, sc_env)
+    procs.append(side)
+    side.wait_line(listening, CHILD_TIMEOUT_S, "its up line")
+    side.proc.send_signal(signal.SIGKILL)
+    side.proc.wait(timeout=30)
+    if not os.path.exists(path):
+        raise AssertionError("deploy restart: SIGKILL left no socket")
+    addr = f"127.0.0.1:{port}"
+    cp = Proc("restarted control plane", cp_argv + [
+        "--serve-store", addr, "--store-data-dir", data_dir,
+        "--store-fsync", "off"], cp_env)
+    procs.append(cp)
+    out: dict = {}
+    remote = None
+    try:
+        t_turn, _ = cp.wait_line(lambda x: "sidecar turn " in x,
+                                 CHILD_TIMEOUT_S, "a turn")
+        side = Proc("sidecar", sc_argv, sc_env)
+        procs.append(side)
+        removed = None
+        deadline = time.time() + CHILD_TIMEOUT_S
+        while side.find(listening) is None:
+            if removed is None and not os.path.exists(path):
+                removed = time.perf_counter()
+            if side.proc.poll() is not None or time.time() > deadline:
+                raise AssertionError(f"the restarted sidecar did not come "
+                                     f"up:\n{side.tail()}")
+            time.sleep(0.005)
+        t_ready, _ = side.find(listening)
+        remote = RemoteClusterStore(addr)
+        t_all = wait_bound(remote, want, 2 * CHILD_TIMEOUT_S, "restart", cp)
+        out["binds"] = placement(remote, sc["n_jobs"], sc["tasks_per_job"])
+        remote.close()
+        remote = None
+        rows = turn_lines(cp)
+        i = next((i for i, (_, r) in enumerate(rows)
+                  if r.get("sidecar_launches")), None)
+        if i is None:
+            raise AssertionError(f"deploy restart: no card cycle: {rows}")
+        gap = [r for _, r in rows[:i]]
+        t_first, first = rows[i]
+        reasons = sorted({r.get("allocate_fault_reason") for r in gap}
+                         - {None})
+        out.update(
+            awaited_the_dead_socket=any(
+                "waiting for the solver sidecar" in x for _, x in cp.lines),
+            cycles_before_first_answer=len(gap), gap_reasons=reasons,
+            gap_devices=sorted({str(r.get("device")) for r in gap}),
+            dead_socket_removed_before_ready=removed is not None
+            and removed < t_ready,
+            sidecar_ready_ms=(t_ready - side.t0) * 1e3,
+            first_turn_to_first_card_cycle_ms=(t_first - t_turn) * 1e3,
+            first_card_cycle=first,
+            full_ship_chunks=full_ship_chunks(first, sc["n_nodes"]),
+            first_turn_to_all_running_ms=(t_all - t_turn) * 1e3)
+        if not gap or any(r["binds"] or r.get("host_fallback")
+                          for r in gap) \
+                or "sidecar_unavailable" not in reasons \
+                or out["gap_devices"] != ["None"]:
+            raise AssertionError(f"deploy restart: the cycles before the "
+                                 f"first answer: {gap}")
+        if not out["dead_socket_removed_before_ready"] \
+                or not first["binds"] \
+                or not str(first.get("device")).startswith("cuda") \
+                or first["sidecar_shipped_chunks"] < out["full_ship_chunks"]:
+            raise AssertionError(f"deploy restart: removed {removed}, "
+                                 f"ready {t_ready}, the first card cycle "
+                                 f"{first}")
+        bad = [r for _, r in rows if r["binds"] and (
+            not r.get("sidecar_launches") or r.get("host_fallback"))]
+        if bad:
+            raise AssertionError(f"deploy restart: binding turns off the "
+                                 f"card: {bad[:3]}")
+        out["launches"] = int(sum(r.get("sidecar_launches", 0)
+                                  for _, r in rows))
+        rc_cp = cp.terminate()
+        rc_side = side.terminate()
+        _, stopped = side.wait_line(lambda x: "sidecar stopped" in x, 10,
+                                    "its stop line")
+        out.update(exit_codes={"control_plane": rc_cp, "sidecar": rc_side},
+                   sidecar_stopped=stopped,
+                   socket_gone=not os.path.exists(path))
+        if rc_cp or rc_side or not out["socket_gone"] or int(re.search(
+                r"(\d+) kernel launches", stopped).group(1)) \
+                != out["launches"]:
+            raise AssertionError(f"deploy restart: SIGTERM left {out}")
+    finally:
+        if remote is not None:
+            remote.close()
+    return out
+
+
+def phase_deploy(dev, scale=None) -> dict:
+    """installer_torch/docker-compose.yaml's two command lines as written
+    (paths and ports re-pointed at a directory under build/, a loopback
+    ``--serve-store`` added), on the card: the control plane first, the
+    sidecar ``sidecar_delay_s`` later with an empty kernel build
+    directory (nvcc runs); 2000 nodes, 3 queues and 1000 vcjobs over the
+    wire and the two example jobs through ``vcctl --server`` while the
+    sidecar builds; nothing bound before it is ready, then every pod
+    bound through it, each binding turn solved on the card (read off the
+    control plane's own log); the binds equal to the same command line
+    with the solver in process over a data dir seeded alike; /healthz,
+    /metrics and admission over mutual TLS; waves, the sidecar SIGKILLed
+    in one and restarted as a kubelet restarts it; SIGTERM, exit 0 and
+    the socket gone; the pod restarted behind a killed sidecar
+    (``deploy_restart``)."""
+    import re
+    import shutil
+    import signal
+    import tempfile
+
+    from volcano_tpu_torch.client import RemoteClusterStore
+    sc = dict(DEPLOY, **(scale or {}))
+    n, j, tpj = sc["n_nodes"], sc["n_jobs"], sc["tasks_per_job"]
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="deploy-", dir=os.path.join(REPO, "build"))
+    rel = os.path.relpath(tmp, REPO)   # a unix socket path is short
+    sock = os.path.join(rel, "solver.sock")
+    jobs_dir = os.path.join(tmp, "jobs")
+    os.makedirs(jobs_dir)
+    certs = deploy_certs(tmp)
+    ports = {k: _free_port() for k in ("store", "metrics", "webhook",
+                                       "twin", "restart")}
+    addr = f"127.0.0.1:{ports['store']}"
+    cmds = compose_commands()
+    paths = {"/run/volcano/solver.sock": sock,
+             "/etc/volcano/scheduler-conf.yaml": os.path.join(
+                 REPO, "installer_torch", "scheduler-conf.yaml"),
+             "/etc/volcano/certs/ca.crt": certs["ca.crt"],
+             "/var/lib/volcano/jobs": jobs_dir}
+    cp_argv = repoint(cmds["control-plane"][0], paths, {
+        "--webhook-bind": f"127.0.0.1:{ports['webhook']}",
+        "--metrics-port": str(ports["metrics"])})
+    sc_argv = repoint(cmds["solver"][0],
+                      {"/run/volcano/solver.sock": sock}, {})
+    base_env = dict(os.environ, PYTHONHASHSEED="0", PYTHONUNBUFFERED="1")
+    base_env.pop("VOLCANO_FAULTS", None)
+    cp_env = dict(base_env, **cmds["control-plane"][1])
+    sc_env = dict(base_env, **cmds["solver"][1],
+                  VOLCANO_COMPILE_CACHE_DIR=os.path.join(tmp, "kernels"))
+    seeded = os.path.join(tmp, "seeded")
+    seed_data_dir(seeded, sc)
+    restarted = os.path.join(tmp, "restarted")
+    shutil.copytree(seeded, restarted)
+    procs: list = []
+    remote = None
+    out = {"phase": "deploy", "control_plane": cp_argv[1:],
+           "solver": sc_argv[1:]}
+    try:
+        # -- 1. cold start, the pod's worst order -------------------------
+        cp = Proc("control plane", cp_argv + ["--serve-store", addr], cp_env)
+        procs.append(cp)
+        t_up, _ = cp.wait_line(lambda x: "standalone up" in x,
+                               CHILD_TIMEOUT_S, "its up line")
+        out["control_plane_up_ms"] = (t_up - cp.t0) * 1e3
+        remote = RemoteClusterStore(addr)
+        t_submit = time.perf_counter()
+        feed(remote, deploy_base(n), True, wait=False)
+        left = cp.t0 + sc["sidecar_delay_s"] - time.perf_counter()
+        if left > 0:
+            time.sleep(left)
+        side = Proc("sidecar", sc_argv, sc_env)
+        procs.append(side)
+        # the example jobs first: a control plane that schedules on the
+        # host binds their few pods within a cycle
+        cli = [sys.executable, "-m", "volcano_tpu_torch.cli", "--server",
+               addr]
+        for name in DEPLOY_EXAMPLES:
+            res = subprocess.run(
+                cli + ["job", "run", "-f",
+                       os.path.join(REPO, "example", name)],
+                cwd=REPO, env=base_env, capture_output=True, text=True,
+                timeout=CHILD_TIMEOUT_S)
+            if res.returncode != 0 or "successfully" not in res.stdout:
+                raise AssertionError(f"vcctl job run -f {name}: "
+                                     f"{res.stdout}{res.stderr}")
+        feed(remote, deploy_jobs(0, j, tpj), True, wait=False)
+        t_seeded = time.perf_counter()
+        bound_early = 0
+        deadline = time.time() + 2 * CHILD_TIMEOUT_S
+        while True:
+            ready = side.find(lambda x: "listening on" in x)
+            if ready is not None:
+                break
+            if side.proc.poll() is not None or time.time() > deadline:
+                raise AssertionError(f"the sidecar did not come up:\n"
+                                     f"{side.tail()}")
+            bound_early = max(bound_early, sum(
+                1 for p in remote.list("pods") if p.node_name))
+            time.sleep(0.5)
+        t_ready, ready_line = ready
+        if not os.path.exists(os.path.join(REPO, sock)):
+            raise AssertionError("deploy: the sidecar is up but its socket "
+                                 "is not there")
+        before = [row for t, row in turn_lines(cp) if t < t_ready]
+        out.update(sidecar_ready_ms=(t_ready - side.t0) * 1e3,
+                   sidecar_started_ms=(side.t0 - cp.t0) * 1e3,
+                   sidecar_line=ready_line,
+                   cycles_before_ready=len(before),
+                   pods_bound_before_ready=bound_early,
+                   seeded_before_ready=t_seeded < t_ready,
+                   waited_for_sidecar=any(
+                       "waiting for the solver sidecar" in x
+                       for _, x in cp.lines))
+        if bound_early or any(r["binds"] or r.get("host_fallback")
+                              for r in before):
+            raise AssertionError(f"deploy: a cycle bound before the "
+                                 f"sidecar was ready: {bound_early} pods, "
+                                 f"{before}\n{cp.tail()}")
+        emit({"regime": "cold_start", **{k: v for k, v in out.items()
+                                         if k not in ("control_plane",
+                                                      "solver")}})
+        # -- 2. the cluster at the cycle cell's size -----------------------
+        want = j * tpj + sum(
+            t.replicas for _, job in example_jobs() for t in job.spec.tasks)
+        t_all = wait_bound(remote, want, 2 * CHILD_TIMEOUT_S, "burst", cp)
+        binds = placement(remote, j, tpj)
+        rows = [row for _, row in turn_lines(cp)]
+        out.update(pods_bound=len(binds),
+                   submit_to_all_running_ms=(t_all - t_submit) * 1e3,
+                   ready_to_all_running_ms=(t_all - t_ready) * 1e3,
+                   burst_turns=len(rows),
+                   burst_cycle_ms=[r.get("total_ms") for r in rows],
+                   burst_binds=[r["binds"] for r in rows])
+        emit({"phase": "deploy", "regime": "burst", **{
+            k: out[k] for k in ("pods_bound", "submit_to_all_running_ms",
+                                "ready_to_all_running_ms", "burst_turns",
+                                "burst_cycle_ms", "burst_binds")}})
+        # -- 3. on the card, and only there --------------------------------
+        maps = {"control_plane": cp.maps(), "sidecar": side.maps()}
+        # importing torch maps libcuda on the card's machine, in every
+        # process; a CUDA context maps the device files
+        mapped = {k: {"libcuda": "libcuda.so" in m,
+                      "cuda_context": "/dev/nvidia" in m,
+                      "fused_choice": "fused_choice" in m}
+                  for k, m in maps.items()}
+        cmdlines = {"control_plane": cp.cmdline(), "sidecar": side.cmdline()}
+        out.update(mapped=mapped, cmdlines=cmdlines)
+        if not (mapped["sidecar"]["cuda_context"]
+                and mapped["sidecar"]["fused_choice"]) \
+                or mapped["control_plane"]["cuda_context"] \
+                or mapped["control_plane"]["fused_choice"]:
+            raise AssertionError(f"deploy: the kernel is mapped where it "
+                                 f"should not be: {mapped}")
+        if cmdlines != {
+                "control_plane": ["-m", "volcano_tpu_torch.standalone"],
+                "sidecar": ["-m", "volcano_tpu_torch.parallel.sidecar"]}:
+            raise AssertionError(f"deploy: the processes run {cmdlines}")
+        # -- 5. the rest of the control plane ------------------------------
+        status, _ = http_get(f"http://127.0.0.1:{ports['metrics']}/healthz")
+        _, metrics_text = http_get(
+            f"http://127.0.0.1:{ports['metrics']}/metrics")
+        series = {s: s in metrics_text for s in DEPLOY_SERIES}
+        if status != 200 or not all(series.values()):
+            raise AssertionError(f"deploy: /healthz {status}, series "
+                                 f"{series}")
+        out.update(healthz=status, series=series,
+                   admission=admission_mtls(
+                       f"127.0.0.1:{ports['webhook']}", certs))
+        # -- 6. waves, the sidecar killed in one and restarted -------------
+        waves = []
+        k = j
+        for w in range(sc["waves"]):
+            wave = {"wave": w}
+            kill = w == sc["kill_wave"]
+            if kill:
+                n_rows = len(turn_lines(cp))
+                side.proc.send_signal(signal.SIGKILL)
+                side.proc.wait(timeout=30)
+                t_kill = time.perf_counter()
+            t_w = time.perf_counter()
+            feed(remote, deploy_jobs(k, sc["wave_jobs"], tpj), True,
+                 wait=False)
+            k += sc["wave_jobs"]
+            want += sc["wave_jobs"] * tpj
+            if kill:
+                # down until the breaker opened, then restarted with the
+                # same command line, as a kubelet restarts a container
+                deadline = time.time() + CHILD_TIMEOUT_S
+                while not any(r.get("breaker_state") == 2.0
+                              for _, r in turn_lines(cp)[n_rows:]):
+                    if time.time() > deadline:
+                        raise AssertionError(f"deploy: the breaker did not "
+                                             f"open:\n{cp.tail()}")
+                    time.sleep(0.1)
+                wave["down_ms"] = (time.perf_counter() - t_kill) * 1e3
+                side = Proc("sidecar", sc_argv, sc_env)
+                procs.append(side)
+                t_back, _ = side.wait_line(lambda x: "listening on" in x,
+                                           CHILD_TIMEOUT_S, "ready again")
+                wave["restart_ready_ms"] = (t_back - t_kill) * 1e3
+            t_b = wait_bound(remote, want, 3 * CHILD_TIMEOUT_S, f"wave {w}",
+                             cp)
+            wave["submit_to_all_running_ms"] = (t_b - t_w) * 1e3
+            if kill:
+                after = turn_lines(cp)[n_rows:]
+                i = next((i for i, (_, r) in enumerate(after)
+                          if r.get("sidecar_launches")), None)
+                if i is None:
+                    raise AssertionError(f"deploy: no card cycle after the "
+                                         f"restart: {after}")
+                gap = [r for _, r in after[:i]]
+                t_first, first = after[i]
+                reasons = sorted({r.get("allocate_fault_reason")
+                                  for r in gap} - {None})
+                if any(r["binds"] or r.get("host_fallback") for r in gap):
+                    raise AssertionError(f"deploy: a cycle bound while the "
+                                         f"sidecar was down: {gap}")
+                if not {"sidecar_unavailable", "breaker_open"} <= set(
+                        reasons) or not first["binds"] \
+                        or first["sidecar_shipped_chunks"] \
+                        < full_ship_chunks(first, n):
+                    raise AssertionError(f"deploy: the gap's reasons "
+                                         f"{reasons}, the first card cycle "
+                                         f"{first}")
+                wave.update(kill_to_first_card_cycle_ms=(
+                    t_first - t_kill) * 1e3,
+                    full_ship_chunks=full_ship_chunks(first, n),
+                    gap_cycles=len(gap),
+                    gap_reasons=reasons, first_card_cycle=first)
+            waves.append(wave)
+            emit({"phase": "deploy", "regime": "wave", **wave})
+        final = placement(remote, k, tpj)
+        out["waves"] = waves
+        # every binding cycle solved through the sidecar on the card
+        rows = [row for _, row in turn_lines(cp)]
+        binding = [r for r in rows if r["binds"]]
+        bad = [r for r in binding if not r.get("sidecar_launches")
+               or r.get("host_fallback")
+               or not str(r.get("device")).startswith("cuda")]
+        if bad or not binding:
+            raise AssertionError(f"deploy: binding turns off the card: "
+                                 f"{bad[:3]}")
+        if sum(r["binds"] for r in rows) != len(final):
+            raise AssertionError(f"deploy: {sum(r['binds'] for r in rows)} "
+                                 f"binds in the turn lines, {len(final)} "
+                                 f"pods bound")
+        cycle_ms = [r["total_ms"] for r in rows if "total_ms" in r]
+        out.update(turns=len(rows), binding_turns=len(binding),
+                   cycle_ms_p50=statistics.median(cycle_ms),
+                   cycle_ms_max=max(cycle_ms),
+                   launches=int(sum(r.get("sidecar_launches", 0)
+                                    for r in rows)))
+        remote.close()
+        remote = None
+        # -- 7. stop ---------------------------------------------------------
+        rc_cp = cp.terminate()
+        rc_side = side.terminate()
+        _, stopped = side.wait_line(lambda x: "sidecar stopped" in x, 10,
+                                    "its stop line")
+        # the restarted sidecar counted from 0: its launches are those its
+        # replies carried since it came back
+        since = int(sum(r.get("sidecar_launches", 0)
+                        for t, r in turn_lines(cp) if t > t_back))
+        if int(re.search(r"(\d+) kernel launches", stopped).group(1)) \
+                != since or not since:
+            raise AssertionError(f"deploy: the sidecar's {stopped!r}, the "
+                                 f"turn lines' {since}")
+        out.update(exit_codes={"control_plane": rc_cp, "sidecar": rc_side},
+                   sidecar_stopped=stopped,
+                   socket_gone=not os.path.exists(os.path.join(REPO, sock)))
+        if rc_cp or rc_side or not out["socket_gone"]:
+            raise AssertionError(f"deploy: SIGTERM left {out['exit_codes']}"
+                                 f", socket gone {out['socket_gone']}")
+        # -- 8. the pod restarted behind a killed sidecar ------------------
+        restart = deploy_restart(cp_argv, cp_env, sc_argv, sc_env, sock,
+                                 restarted, ports["restart"], len(binds),
+                                 sc, procs)
+        out["restart"] = {k: v for k, v in restart.items() if k != "binds"}
+        out["launches"] += restart["launches"]
+        emit({"phase": "deploy", "regime": "restart", **out["restart"]})
+        # -- 4. decisions against the solver in process --------------------
+        twin = deploy_twin(cp_argv, cp_env, seeded, ports["twin"],
+                           len(binds), 2 * CHILD_TIMEOUT_S)
+        if not out["seeded_before_ready"]:
+            out["decisions"] = "not compared: the sidecar was ready " \
+                "before every object was submitted"
+        elif twin["binds"] != binds:
+            diff = [p for p in binds if binds[p] != twin["binds"].get(p)]
+            raise AssertionError(f"deploy: {len(diff)} binds differ from "
+                                 f"the solver in process, e.g. "
+                                 f"{diff[:3]}")
+        else:
+            out["decisions"] = "identical to the solver in process"
+        out["twin_bound_ms"] = twin["bound_ms"]
+        # the restarted control plane started from the same seeded store,
+        # but after cycles that failed: reported, not held
+        out["restart"]["binds_differing_from_twin"] = sum(
+            1 for p, v in restart["binds"].items()
+            if twin["binds"].get(p) != v)
+    finally:
+        if remote is not None:
+            remote.close()
+        for p in procs:
+            p.kill()
+    shutil.rmtree(tmp, ignore_errors=True)
+    emit(out)
+    return out
+
+
 def arena_equals_mirror(dc) -> bool:
     return all(torch.equal(d.reshape(-1).cpu(), torch.from_numpy(h))
                for d, h in ((dc._dev_f, dc._host_f),
@@ -6807,7 +7604,7 @@ def arena_equals_mirror(dc) -> bool:
 PHASES = ("kernel", "edges", "small", "solve", "profile", "cycle", "hdrf",
           "evict", "sequential", "sharded", "reschedule", "prewarm",
           "sidecar", "failover", "lifecycle", "netstore", "netha",
-          "netshard", "sim", "standalone", "fairshare", "faults")
+          "netshard", "sim", "standalone", "fairshare", "faults", "deploy")
 
 
 def main() -> int:
@@ -6935,6 +7732,8 @@ def main() -> int:
         if "faults" in phases:
             out["faults"] = run("faults", phase_faults, dev, None,
                                 twins["faulttwin"])
+        if "deploy" in phases:
+            out["deploy"] = run("deploy", phase_deploy, dev)
         if sim is not None:
             out["sim"] = run("sim", sim.finish)
     finally:
@@ -6964,9 +7763,12 @@ def main() -> int:
     # start and reports its total), the netshard scheduler's cycles over
     # the read tier (its twin's apart), the sim's card arms (its children
     # and the vcctl child's in-process twin), the standalone's turns on
-    # the card (its CPU twin's apart), and the fair-share and fault-ladder
-    # cycles on the card (their CPU twins launch none), each counted from
-    # 0 (the sequential mode launches no kernel)
+    # the card (its CPU twin's apart), the fair-share and fault-ladder
+    # cycles on the card (their CPU twins launch none), and the deployed
+    # sidecar processes' solves (each process counts from 0 and its replies
+    # carry the launches, summed off the control plane's turn lines; the
+    # in-process twin's are not read), each counted from 0 (the sequential
+    # mode launches no kernel)
     cycle_rows = [cyc["burst"]] + cyc["steady"]
     evict_launches = sum(r["launches"] + r["next_cycle_launches"]
                          for r in evict)
@@ -6988,12 +7790,13 @@ def main() -> int:
             "sim": out["sim"]["launches"],
             "standalone": out["standalone"]["launches"],
             "fairshare": out["fairshare"]["launches"],
-            "faults": out["faults"]["launches"]}
+            "faults": out["faults"]["launches"],
+            "deploy": out["deploy"]["launches"]}
     if min(ring.values()) <= 0:
         raise AssertionError(f"a path of the outer ring, the lifecycle, "
                              f"the network, the sim, the standalone, fair "
-                             f"share or the fault ladder launched no "
-                             f"kernel: {ring}")
+                             f"share, the fault ladder or the deployment "
+                             f"launched no kernel: {ring}")
     emit({"kernels": [{
         "name": "fused_choice", "route": "cuda",
         "source": "volcano_tpu_torch/csrc/fused_choice.cu",
@@ -7029,6 +7832,7 @@ def main() -> int:
         "launches_standalone_twin": out["standalone"]["twin_launches"],
         "launches_fairshare": ring["fairshare"],
         "launches_faults": ring["faults"],
+        "launches_deploy_sidecar": ring["deploy"],
         "launches_headline_solve": main_launches,
         "max_abs_err": max(r["max_abs_err"]
                            for r in krows + [shard_k, resched_k]),

@@ -134,12 +134,12 @@ def test_port_has_every_module_of_the_jax_package():
 TWIN_FILES = {
     "delta_path": ("test_torch_netstore.py",),
     "wire_delta": ("test_torch_netstore.py",),
-    "admission_cli": ("test_torch_admission.py", "test_torch_cli.py"),
+    "admission_cli": ("test_torch_admission.py", "test_torch_cli.py",
+                      "test_torch_installer.py"),
     "ha_observability": ("test_torch_failover.py", "test_torch_netha.py"),
 }
 #: reference classes no port test holds yet, and what they wait for
-WAITING = {("admission_cli", "TestInstallerRender"):
-           "a deployment of the port beside installer/ (ROADMAP Queue A)"}
+WAITING: dict = {}
 
 
 def test_every_reference_suite_has_a_port_twin():

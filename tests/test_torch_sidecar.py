@@ -67,9 +67,12 @@ def _serve(pkg, path, device="cpu", op_by_op=False):
 
 def _client(pkg, path):
     sc = pkg_mod(pkg, "parallel.sidecar")
+    # the port's client learns the device from the replies here: its
+    # servers in this file name the CPU, or no device
+    kw = {"device": None} if pkg == "torch" else {}
     for _ in range(100):
         try:
-            client = sc.SidecarSolver(path)
+            client = sc.SidecarSolver(path, **kw)
             client._connect()
             return client
         except OSError:
@@ -399,7 +402,7 @@ def test_cuda_server_failure_raises_on_the_client(tmp_path, action):
     path = str(tmp_path / "cuda.sock")
     server = _CudaFailingServer(path)
     sc = pkg_mod("torch", "parallel.sidecar")
-    client = sc.SidecarSolver(path)
+    client = sc.SidecarSolver(path, device=None)   # learns it from a reply
     try:
         if action == "allocate":
             c = SeededCluster("torch", 31, n_nodes=6)

@@ -28,6 +28,7 @@ Two execution modes:
 from __future__ import annotations
 
 import logging
+import sys
 from types import SimpleNamespace
 from typing import Dict, List, Optional
 
@@ -57,6 +58,14 @@ def _on_card(ssn, dc=None) -> bool:
     return getattr(dev, "type", None) == "cuda" or (
         mesh is not None and any(d.type == "cuda" for d in mesh.devices)
     ) or getattr(getattr(ssn, "sidecar", None), "on_card", False)
+
+
+def device_fault_reason(exc) -> str:
+    """The typed reason a failed device solve records
+    (``<action>_fault_reason``): the sidecar's failures carry theirs
+    (``parallel.sidecar``: sidecar_unavailable, sidecar_error,
+    sidecar_device); anything else is a device_error."""
+    return getattr(exc, "reason", "device_error")
 
 
 def _task_order_key(ssn):
@@ -645,6 +654,8 @@ class AllocateAction(Action):
         re-raised after the accounting instead: a failed kernel build or
         launch must surface as the action's error, not as a cycle that
         quietly ran on the host."""
+        timing["allocate_fault_reason"] = device_fault_reason(
+            sys.exc_info()[1])
         if breaker is not None:
             breaker.record_failure()
         if dc is not None:
@@ -909,11 +920,12 @@ class AllocateAction(Action):
             # A CUDA arena, or a sharded one with a CUDA shard, has no
             # host fallback: the cycle fails instead
             sdc = getattr(ssn, "sharded_device_cache", None)
+            timing = ssn.solver_options.setdefault("timing", {})
+            timing["allocate_fault_reason"] = "breaker_open"
             if _on_card(ssn, sdc if mode == "sharded" else None):
                 raise RuntimeError(
                     "the device path is circuit-broken after repeated "
                     "device failures; a CUDA arena has no host fallback")
-            timing = ssn.solver_options.setdefault("timing", {})
             timing["host_fallback"] = 1.0
             timing["breaker_open"] = 1.0
             breaker.count_fallback()

@@ -209,10 +209,12 @@ def run_evict_solver(ssn, mode: str, skip_jobs=()):
         decode_evict_compact, solve_evict, solve_evict_uniform,
     )
     from ..resilience import faults
-    from .allocate import _on_card, build_score_inputs
+    from .allocate import _on_card, build_score_inputs, device_fault_reason
 
+    timing = ssn.solver_options.setdefault("timing", {})
     breaker = getattr(ssn, "breaker", None)
     if breaker is not None and not breaker.allow():
+        timing[f"{mode}_fault_reason"] = "breaker_open"
         if _on_card(ssn):
             raise RuntimeError(
                 f"{mode}: the device path is circuit-broken after repeated "
@@ -246,7 +248,6 @@ def run_evict_solver(ssn, mode: str, skip_jobs=()):
     vnp = {k: np.asarray(v) for k, v in varrays.items()}
     dev = getattr(ssn.cache, "device", None)
     sidecar = getattr(ssn, "sidecar", None)
-    timing = ssn.solver_options.setdefault("timing", {})
     t0 = time.perf_counter()
     try:
         # breaker scope: a throwing evict dispatch/collect (or an injected
@@ -280,7 +281,8 @@ def run_evict_solver(ssn, mode: str, skip_jobs=()):
             except ValueError:  # >32k nodes/jobs: indices overflow packing
                 assigned = res.assigned.cpu().numpy()
                 evicted_by = res.evicted_by.cpu().numpy()
-    except Exception:
+    except Exception as e:
+        timing[f"{mode}_fault_reason"] = device_fault_reason(e)
         if breaker is not None:
             breaker.record_failure()
         if _on_card(ssn):

@@ -14,11 +14,22 @@ Protocol: length-prefixed frames, a JSON header + raw little-endian array
 bytes, the JAX package's wire format byte for byte, so a client of either
 package talks to a server of either. Every reply of this package's server
 names its device in the header (``"device"``, ignored by the JAX
-package's client): a client that learned the server solves on a CUDA
-device treats a failed solve as the card's failure — the session raises,
-it never finishes on the host oracle — exactly as a failed in-process
-CUDA solve does. Against a server on the CPU (or one that names no
-device) the host fallback stays.
+package's client): a client that solves on a CUDA device treats a
+failed solve as the card's failure — the session raises, it never
+finishes on the host oracle — exactly as a failed in-process CUDA solve
+does. A client expects the card from the start (``SidecarSolver(path)``,
+``device="cuda"`` by default, since this package's sidecar binary always
+solves on CUDA): a sidecar that has not answered yet, or is gone, fails
+the session too, and a reply naming another device raises. Only a client
+built with ``device=None`` learns the device from the replies, and
+against a server on the CPU (or one that names no device) keeps the host
+fallback.
+
+The server builds the kernel library and opens the CUDA context before
+it binds its socket, and the binary first removes a socket a killed
+predecessor left, so a socket that exists belongs to a server that can
+solve (a readiness probe tests for it); it removes the socket when it
+stops.
 
     python -m volcano_tpu_torch.parallel.sidecar /path/to.sock
 """
@@ -44,6 +55,25 @@ _MAGIC = b"VTS1"
 #: keeping a garbage length prefix from OOMing the solver process.
 MAX_HEADER_BYTES = 1 << 20
 MAX_BLOB_BYTES = 256 << 20
+
+
+class SidecarUnavailable(ConnectionError):
+    """The sidecar's socket is missing or refuses, or the connection
+    dropped: no server answered."""
+
+    reason = "sidecar_unavailable"
+
+
+class SidecarError(RuntimeError):
+    """The server answered with an error frame (its solve failed)."""
+
+    reason = "sidecar_error"
+
+
+class SidecarDeviceMismatch(RuntimeError):
+    """A reply named another device than the client expects."""
+
+    reason = "sidecar_device"
 
 
 # -- framing ----------------------------------------------------------------
@@ -113,9 +143,55 @@ class SolverServer:
 
         self.path = path
         self.device = resolve_device(device)
+        #: the device every reply names
+        self.device_name = str(self.device)
         self._listener: Optional[socket.socket] = None
+        self._inode: Optional[int] = None
         self._stop = threading.Event()
         self._device_cache = None
+        #: seconds the kernel library took to build or load (None: not
+        #: loaded, a server on the CPU); whether it was built here
+        self.build_s: Optional[float] = None
+        self.built = False
+        #: requests answered without an error frame
+        self.answered = 0
+
+    def prepare(self) -> None:
+        """Pay before the socket exists what a first solve would pay
+        under the client's timeout: on a CUDA device, the kernel library
+        (built with nvcc into the build directory if it is not there —
+        $VOLCANO_COMPILE_CACHE_DIR re-points it) and the CUDA context."""
+        self._ensure()
+        if self.device.type != "cuda":
+            return
+        import torch
+
+        from ..ops import _build
+        from ..ops import fused_choice as fc
+        from ..ops.precompile import configure_compilation_cache
+
+        configure_compilation_cache()
+        t0 = time.perf_counter()
+        self.built = bool(_build.build("fused_choice"))
+        fc._kernel()
+        self.build_s = time.perf_counter() - t0
+        torch.zeros(1, device=self.device)
+        torch.cuda.synchronize(self.device)
+
+    def bind(self) -> None:
+        """``prepare``, then create the socket: from then on a client
+        that finds the socket reaches a server that can solve."""
+        self.prepare()
+        try:
+            os.unlink(self.path)
+        except OSError:
+            pass
+        self._listener = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        self._listener.bind(self.path)
+        self._inode = os.stat(self.path).st_ino
+        # backlog > 1 so a second client connects instead of hanging in
+        # the kernel queue forever; it gets an explicit busy error below
+        self._listener.listen(4)
 
     def _ensure(self):
         if self._device_cache is None:
@@ -189,16 +265,25 @@ class SolverServer:
                     res.evicted_by.cpu().numpy()]
 
     def serve_forever(self) -> None:
+        """Serve until ``stop``, a shutdown request or an exception; the
+        socket is removed on the way out (``bind`` first if not bound)."""
+        if self._listener is None:
+            self.bind()
         try:
-            os.unlink(self.path)
+            self._accept_loop()
+        finally:
+            self._unlink()
+
+    def _unlink(self) -> None:
+        # only the socket this server bound: a successor may have bound
+        # the path since
+        try:
+            if os.stat(self.path).st_ino == self._inode:
+                os.unlink(self.path)
         except OSError:
             pass
-        self._listener = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
-        self._listener.bind(self.path)
-        # backlog > 1 so a second client connects instead of hanging in
-        # the kernel queue forever; it gets an explicit busy error below
-        self._listener.listen(4)
-        device = str(self.device)
+
+    def _accept_loop(self) -> None:
         while not self._stop.is_set():
             try:
                 conn, _ = self._listener.accept()
@@ -228,7 +313,7 @@ class SolverServer:
                                     _send_frame(conn2, {
                                         "error": "busy: another client "
                                                  "is being served",
-                                        "device": device}, [])
+                                        "device": self.device_name}, [])
                             except OSError:
                                 pass
                             continue
@@ -243,6 +328,7 @@ class SolverServer:
                             else:
                                 out_header, out_blobs = self._solve(header,
                                                                     blobs)
+                            self.answered += 1
                         except Exception as e:  # noqa: BLE001
                             # a bad request or a failed solve must not kill
                             # the server or leave the client hanging:
@@ -250,14 +336,21 @@ class SolverServer:
                             out_header = {"error": f"{type(e).__name__}: "
                                                    f"{e}"}
                             out_blobs = []
-                        out_header["device"] = device
+                        out_header["device"] = self.device_name
                         _send_frame(conn, out_header, out_blobs)
-                except (ConnectionError, OSError):
-                    continue  # client went away; await the next one
+                except (ConnectionError, OSError, ValueError):
+                    # the client went away (await the next one), or stop()
+                    # closed the listener under select (ValueError: fd -1)
+                    continue
 
     def stop(self) -> None:
         self._stop.set()
         if self._listener is not None:
+            try:
+                # wakes a thread blocked in accept(); close() alone does not
+                self._listener.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
             self._listener.close()
 
 
@@ -269,13 +362,24 @@ class SidecarSolver:
     solve when the session exposes one (SchedulerCache.sidecar).
 
     ``device`` is the server's device as its last reply named it (None
-    until a reply names one); ``on_card`` is True once that is a CUDA
-    device. ``last_request_bytes`` / ``last_rtt_ms``: the payload bytes
-    and the round trip of the last request."""
+    until a reply names one). ``expected`` (the ``device`` argument,
+    ``"cuda"`` by default) is the device type the server must solve on: a
+    reply naming another (or none) raises SidecarDeviceMismatch; None
+    expects nothing and learns the device from the replies. ``on_card``
+    is True when the expected device, or else the last named one, is a
+    CUDA device: from the start for a client expecting the card, so a
+    session before the server's first answer already has no host
+    fallback.
+    Failures raise typed: SidecarUnavailable (no server answered),
+    SidecarError (an error frame), each with its ``reason``.
+    ``last_request_bytes`` / ``last_rtt_ms``: the payload bytes and the
+    round trip of the last request."""
 
-    def __init__(self, path: str, timeout: float = 120.0):
+    def __init__(self, path: str, timeout: float = 120.0, device="cuda"):
         self.path = path
         self.timeout = timeout
+        self.expected: Optional[str] = None if device is None \
+            else str(device)
         self._sock: Optional[socket.socket] = None
         self.device: Optional[str] = None
         self.last_request_bytes = 0
@@ -283,7 +387,8 @@ class SidecarSolver:
 
     @property
     def on_card(self) -> bool:
-        return bool(self.device) and self.device.startswith("cuda")
+        dev = self.expected or self.device
+        return bool(dev) and dev.startswith("cuda")
 
     def _connect(self) -> socket.socket:
         if self._sock is None:
@@ -309,15 +414,23 @@ class SidecarSolver:
             sock = self._connect()
             _send_frame(sock, header, blobs)
             out_header, out_blobs = _recv_frame(sock)
-        except (ConnectionError, OSError):
+        except OSError as e:
             self.close()
-            raise
+            raise SidecarUnavailable(
+                f"sidecar {header.get('op')} at {self.path}: "
+                f"{type(e).__name__}: {e}") from e
         self.last_rtt_ms = (time.perf_counter() - t0) * 1e3
         self.last_request_bytes = sum(np.asarray(b).nbytes for b in blobs)
-        if out_header.get("device"):
-            self.device = out_header["device"]
+        named = out_header.get("device")
+        if named:
+            self.device = named
+        if self.expected is not None and (named or "").split(":")[0] \
+                != self.expected.split(":")[0]:
+            raise SidecarDeviceMismatch(
+                f"the sidecar at {self.path} solves on "
+                f"{named or 'an unnamed device'}, not {self.expected}")
         if "error" in out_header:
-            raise RuntimeError(
+            raise SidecarError(
                 f"sidecar {header.get('op')} failed on "
                 f"{self.device or 'an unnamed device'}: "
                 f"{out_header['error']}")
@@ -376,18 +489,63 @@ class SidecarSolver:
         return out_blobs[0], out_blobs[1]
 
 
-def main(argv=None) -> int:
-    """``python -m volcano_tpu_torch.parallel.sidecar /path/to.sock`` — the
-    solver process entry point (owns the card; raises without one)."""
+def build_parser():
+    """The entry point's argument parser."""
     import argparse
 
     ap = argparse.ArgumentParser(prog="volcano-solver-sidecar")
     ap.add_argument("socket_path")
-    args = ap.parse_args(argv)
+    return ap
+
+
+class _Terminated(BaseException):
+    """SIGTERM, raised out of whatever the main thread waits in (not an
+    Exception: a solve's error handler must not answer it)."""
+
+
+def _terminate(*_args):
+    raise _Terminated
+
+
+def main(argv=None) -> int:
+    """``python -m volcano_tpu_torch.parallel.sidecar /path/to.sock`` — the
+    solver process entry point (owns the card; raises without one). The
+    socket appears once the server can solve; SIGTERM removes it and
+    exits 0."""
+    import signal
+
+    args = build_parser().parse_args(argv)
+    # a socket left by a killed predecessor (SIGKILL, the OOM killer) in
+    # the shared volume: no live server owns it at start, and a readiness
+    # probe or a starting control plane must not take it for one while
+    # this server builds
+    try:
+        os.unlink(args.socket_path)
+    except FileNotFoundError:
+        pass
+    from ..ops import fused_choice as fc
+
+    t0 = time.perf_counter()
+    signal.signal(signal.SIGTERM, _terminate)
     server = SolverServer(args.socket_path)
-    print(f"solver sidecar listening on {args.socket_path} "
-          f"(device {server.device})", flush=True)
-    server.serve_forever()
+    try:
+        server.bind()
+        if server.build_s is None:
+            kernel = "no kernel library"
+        else:
+            kernel = (f"kernel library {'built' if server.built else 'found'}"
+                      f" in {server.build_s:.3f} s")
+        print(f"solver sidecar listening on {args.socket_path} "
+              f"(device {server.device}, {kernel}, ready "
+              f"{time.perf_counter() - t0:.3f} s after start)", flush=True)
+        server.serve_forever()
+    except _Terminated:
+        pass
+    finally:
+        server.stop()
+        server._unlink()
+    print(f"solver sidecar stopped: {server.answered} requests answered, "
+          f"{fc.fused_choice.launches} kernel launches", flush=True)
     return 0
 
 

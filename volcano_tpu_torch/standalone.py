@@ -20,6 +20,17 @@ The scheduler's arena lives on the CUDA device unless ``device="cpu"``
 constructor raises. The replica-only mode (``--store-replica-of``) builds
 no scheduler and needs no device.
 
+With a solver sidecar (``--sidecar``; the control plane then passes
+``--device cpu``) the client expects the card, since the port's sidecar
+always solves on CUDA: no cycle finishes on the host oracle, neither
+before the sidecar first answers nor while it is gone — allocate,
+preempt and reclaim fail typed and the breaker counts, as a failed
+in-process CUDA solve does. This deliberately deviates from the JAX
+package, whose client learns nothing before a reply and falls back to
+the host. ``run`` holds the first turn until the sidecar's socket
+exists (the server binds it once it can solve), and each turn then
+logs one ``sidecar turn`` line: its binds and how the cycle solved.
+
 Jobs are submitted with the in-process CLI against the same store when
 embedding, or by pointing --jobs-dir at a directory of job YAMLs (each
 file is applied once; the reference's e2e suites submit via vcctl).
@@ -28,6 +39,7 @@ file is applied once; the reference's e2e suites submit via vcctl).
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import threading
@@ -35,6 +47,14 @@ import time
 from typing import Optional
 
 log = logging.getLogger(__name__)
+
+#: the cycle's timing keys a ``sidecar turn`` line carries
+SIDECAR_TURN_KEYS = (
+    "total_ms", "allocate_ms", "sidecar_rtt_ms", "sidecar_launches",
+    "sidecar_shipped_chunks", "sidecar_request_bytes", "host_fallback",
+    "breaker_state", "allocate_error", "allocate_fault_reason",
+    "preempt_error", "preempt_fault_reason", "reclaim_error",
+    "reclaim_fault_reason")
 
 
 class Standalone:
@@ -293,6 +313,8 @@ class Standalone:
                    if self.store.try_get("nodes", node.name) is None])
         if sidecar_path:
             from .parallel.sidecar import SidecarSolver
+            # the client expects the card (the port's sidecar solves on
+            # CUDA): no host fallback, even before its first answer
             self.cache.sidecar = SidecarSolver(sidecar_path)
         self.cache.run()
         # controller traffic rides the CONTROL admission lane: when the
@@ -362,6 +384,9 @@ class Standalone:
         if rec is not None:
             rec.begin_cycle(self._turn)
         self.controllers.process_all()
+        from .metrics import metrics
+        scheduled = {"result": "scheduled"}
+        binds = metrics.schedule_attempts.get(scheduled)
         self.scheduler.run_once()
         if drain_effects:
             # land the cycle's async binds before the controllers' second
@@ -374,7 +399,32 @@ class Standalone:
         self.controllers.process_all()
         if rec is not None:
             rec.end_cycle(self.scheduler.last_cycle_timing)
+        sidecar = self.cache.sidecar
+        if sidecar is not None:
+            t = self.scheduler.last_cycle_timing
+            log.info("sidecar turn %s", json.dumps({
+                "turn": self._turn, "device": sidecar.device,
+                "binds": int(metrics.schedule_attempts.get(scheduled)
+                             - binds),
+                **{k: t[k] for k in SIDECAR_TURN_KEYS if k in t}},
+                sort_keys=True))
         self._turn += 1
+
+    def await_sidecar(self) -> None:
+        """Block until the sidecar's socket exists (or ``stop``): its
+        server binds it only once it can solve. A socket a killed sidecar
+        left passes too (its successor removes it at start); the cycles
+        then fail typed ``sidecar_unavailable`` until a server answers."""
+        path = self.cache.sidecar.path
+        if os.path.exists(path):
+            return
+        t0 = time.time()
+        log.info("waiting for the solver sidecar at %s", path)
+        while not os.path.exists(path):
+            if self._stop.wait(0.1):
+                return
+        log.info("the solver sidecar at %s is up after %.3f s", path,
+                 time.time() - t0)
 
     def run(self) -> None:
         if self.leader_elect:
@@ -392,6 +442,8 @@ class Standalone:
                                        kwargs={"release_on_stop": False},
                                        name="leader-elector", daemon=True)
             renewer.start()
+        if self.cache.sidecar is not None:
+            self.await_sidecar()
         while not self._stop.is_set():
             if self._elector is not None and not self._elector.is_leader:
                 self._stop.wait(0.05)
@@ -507,7 +559,8 @@ def run_replica(primary: str, serve: str, metrics_port: int = 0,
     return 0
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
+    """The binary's argument parser."""
     ap = argparse.ArgumentParser(prog="volcano-tpu-torch-standalone")
     ap.add_argument("--conf", help="scheduler conf YAML path")
     ap.add_argument("--period", type=float, default=1.0)
@@ -719,7 +772,19 @@ def main(argv=None) -> int:
                     help="minimum stranded-fraction improvement below "
                          "which a plan is rejected as no-op churn "
                          "(default 0.01; conf: reschedule.minImprovement)")
+    return ap
+
+
+def main(argv=None) -> int:
+    ap = build_parser()
     args = ap.parse_args(argv)
+    if args.sidecar:
+        # the turn lines say how each cycle solved (Standalone.run_once)
+        handler = logging.StreamHandler()
+        handler.setFormatter(logging.Formatter(
+            "%(asctime)s %(levelname)s %(name)s: %(message)s"))
+        log.addHandler(handler)
+        log.setLevel(logging.INFO)
 
     if args.store_replica_of:
         if not args.serve_replica:
