@@ -38,7 +38,28 @@ checkout, then, printing one JSON line per phase:
 7. profile - one fused headline session under torch.profiler: device time
              by kernel, the fused choice's kernels summed, and the device's
              idle share;
-8. cycle   - the port's Scheduler.run_once on the card at bench.py
+8. headline - bench.py headline()'s pipelined run, not cut: the solve
+             phase's problem (T=10240, N=2048, R=2) churned as bench.py
+             churns it (10 jobs rotated out of the pending set and 20
+             node rows dirtied a session), 4 warm-up and 8 timed
+             synchronous sessions, then 16 sessions through
+             SessionPipeline(depth=2) over one PackedDeviceCache on the
+             card (each session's churn, flatten, pack, arena update and
+             pinned params on this thread; dispatch the packed solve and
+             start_readback; collect the wait and decode_compact). Checks:
+             every pipelined session's assigned and kind equal bit for bit
+             to a cold solve of its packed buffers (a fresh full upload,
+             host params) and to the plain version's fates (other nodes
+             only where the scores tie); then 3 sessions with session 0's
+             collect held (its stream asleep after the solve) until
+             session 1 has scattered into the arena and dispatched, each
+             equal to its cold solve, every launch held against the plain
+             version; the arena equal to its mirror. Reports sync p50,
+             steady wall p50 (the gaps between collects past the first
+             two), device ms a session (torch.profiler), bytes shipped
+             against a full upload, dirty chunks, arena hit rate,
+             overlap_pairs and the launches;
+9. cycle   - the port's Scheduler.run_once on the card at bench.py
              full_cycle()'s scale (2000 nodes of 32 cpu / 128Gi, 3 queues
              1:2:3, default conf): a warm-up burst of 1000 gangs x 10 pods,
              a measured burst on a fresh identical cluster sharing the warm
@@ -53,7 +74,12 @@ checkout, then, printing one JSON line per phase:
              steady cycle, the resident arena equal to its host mirror
              after the run. Every kernel launch of the warm-up burst and of
              the last warm-up wave is held bit for bit against the plain
-             version on its own inputs (cycle_audit). Then: the async
+             version on its own inputs (cycle_audit). The serial-solver
+             arm (Scheduler(pipeline_solver=False)) runs the same burst
+             and waves on a cluster and arena of its own beside the
+             pipelined one, steady cycles in turns: binds equal cycle for
+             cycle, no overlap window; both arms' p50, readback_ms and
+             overlap_ms (regime "serial_solver"). Then: the async
              pinned readback of one steady cycle and of a producer still
              running on the device against a blocking copy
              (cycle_readback), one steady cycle under torch.profiler
@@ -62,7 +88,7 @@ checkout, then, printing one JSON line per phase:
              finish: regime "event"), and a small churned cluster through
              the Scheduler on the card and on the host, binds identical
              (cycle_small);
-9. hdrf    - allocate with the drf hierarchy (hdrf) at BASELINE config
+10. hdrf    - allocate with the drf hierarchy (hdrf) at BASELINE config
              #5's scale: 1000 nodes of 8 cpu / 32Gi / 8 GPUs, the three
              leaf queues of example/hierarchical-jobs.yaml, 500 gangs of
              10 pods (every 5th asks for GPUs). A warm-up burst, a
@@ -72,7 +98,7 @@ checkout, then, printing one JSON line per phase:
              the timing, binds and dominant share per queue beside the
              weights' split, and the kernel's launches with the
              prefilter's counted apart;
-10. evict  - preempt (BASELINE config #4: 2000 running low-priority pods
+11. evict  - preempt (BASELINE config #4: 2000 running low-priority pods
              on 200 nodes, a high-priority gang of 1000) and reclaim (a
              reclaimable queue filling the nodes, 100 high-priority jobs
              of 10 in another queue) through the Scheduler: every
@@ -80,10 +106,10 @@ checkout, then, printing one JSON line per phase:
              pipelined whole; each eviction solve held against the same
              solve on CPU tensors; the victims deleted and the claimers
              bound the next cycle;
-11. sequential - one cycle with allocate in mode: sequential (500 pods,
+12. sequential - one cycle with allocate in mode: sequential (500 pods,
              50 nodes, binpack + predicates) on the card and on the host:
              the same binds;
-12. sharded - the node-axis sharded solver (volcano_tpu_torch.parallel) on
+13. sharded - the node-axis sharded solver (volcano_tpu_torch.parallel) on
              a mesh of 4 virtual shards on the card: (a) the cycle
              phase's cluster through Scheduler(solver_mode="sharded") over
              a ShardedDeviceCache, a 10k-pod burst (every kernel launch
@@ -100,7 +126,7 @@ checkout, then, printing one JSON line per phase:
              identical to a packed twin's, every launch of the round's
              choice and of the placeability prefilter held against the
              plain version; the kernel timed at the shard shape;
-13. reschedule - the global rescheduler (volcano_tpu_torch.reschedule) on
+14. reschedule - the global rescheduler (volcano_tpu_torch.reschedule) on
              the cycle phase's 2000 nodes of 32 cpu / 128Gi, holding 1400
              running gangs of 10 pods of 4 cpu / 8Gi (7 gangs a node, 4
              cpu free on each) and one pending 16-cpu pod that fits
@@ -117,7 +143,7 @@ checkout, then, printing one JSON line per phase:
              bytes on reuse; the layout cut to 60 nodes runs through the
              same pass on the card and on the host with identical
              evictions and plan; the kernel is timed at the defrag shape;
-14. prewarm - the bucket prewarmer (ops.precompile) at the cycle cell's
+15. prewarm - the bucket prewarmer (ops.precompile) at the cycle cell's
              cluster: waves of 10 gangs whose pods per gang grow
              10, 12, 13, 17 (each size twice, each wave completing before
              the next), so the pending task count walks the buckets 112 ->
@@ -128,7 +154,7 @@ checkout, then, printing one JSON line per phase:
              cycle past a crossing with prewarm on, the warm's launches
              counted apart. Per crossing: the first cycle at the new
              bucket beside the next cycle at it, in both arms;
-15. sidecar - `python -m volcano_tpu_torch.parallel.sidecar SOCK` owns the
+16. sidecar - `python -m volcano_tpu_torch.parallel.sidecar SOCK` owns the
              card in its own process (it must name a CUDA device); this
              process's control plane runs on a CPU cache with
              cache.sidecar set: the cycle phase's burst, 12 steady waves,
@@ -139,7 +165,7 @@ checkout, then, printing one JSON line per phase:
              solve must make the client's cycle report allocate_error and
              bind nothing on the host. Per cycle: cycle ms, the round
              trip, the server's rounds and shipped chunks, request bytes;
-16. failover - one store at the cycle cell's scale, leader A (fenced
+17. failover - one store at the cycle cell's scale, leader A (fenced
              writes, the bind journal) through the burst and 3 waves
              while standby B runs shadow_cycle() before each of A's
              cycles; A crashes at a wave's bind_commit; the elector's
@@ -152,7 +178,7 @@ checkout, then, printing one JSON line per phase:
              cold flatten) that launches the kernel (every launch held
              against the plain version). Takeover latency, B's first
              cycle beside C's;
-17. lifecycle - vcjobs (batch.volcano.sh Jobs) from admission to
+18. lifecycle - vcjobs (batch.volcano.sh Jobs) from admission to
              podgroup, pods and binds through the port's webhooks
              (start_webhooks), ControllerManager (job, queue and podgroup
              controllers, the kubelet stand-in, the garbage collector)
@@ -176,7 +202,7 @@ checkout, then, printing one JSON line per phase:
              same script at 200 nodes, 100 jobs and 4 waves on the card
              and on the host (device="cpu"), binds, job, podgroup and
              queue states identical wave by wave;
-18. netstore - the scheduler on the card over the wire: a store process
+19. netstore - the scheduler on the card over the wire: a store process
              (this script with --role store: a StoreServer over a
              DurableClusterStore, fsync on every commit) holds the cycle
              cell; this process's Scheduler runs on the card over a
@@ -196,7 +222,7 @@ checkout, then, printing one JSON line per phase:
              cycle, and the restart: WAL recovery ms and records, ms from
              the kill to the end of the next cycle, that cycle's flatten
              mode and arena ship;
-19. netha  - failover across processes: a store process seeded with the
+20. netha  - failover across processes: a store process seeded with the
              cycle cell already bound (and a gang that fits no node, so
              every cycle solves), three scheduler processes (--role
              scheduler) on the card under run_with_leader_election with
@@ -218,7 +244,7 @@ checkout, then, printing one JSON line per phase:
              renewal to the new leader's first bind) and the new leader's
              first cycle warm against cold: kernel library load, CUDA
              state, flatten mode, arena ship, cycle ms;
-20. netshard - the scheduler on the card over the sharded, replicated
+21. netshard - the scheduler on the card over the sharded, replicated
              store: a primary process (--role shardprimary: a
              ShardProcSupervisor of 4 worker processes, `python -m
              volcano_tpu_torch.client.shardproc`, each a durable shard
@@ -249,7 +275,7 @@ checkout, then, printing one JSON line per phase:
              the next cycle's end, that cycle's flatten and arena ship) and
              the r1 kill (to the leaf caught up, bootstraps by reason,
              fallbacks);
-21. fairshare - (this phase and the next run after the standalone phase,
+22. fairshare - (this phase and the next run after the standalone phase,
              while the card verifies the sim's trace; their plain-route
              twins are three child processes, --role fairtwin,
              fairhdrftwin and faulttwin, started together, each printing
@@ -259,7 +285,7 @@ checkout, then, printing one JSON line per phase:
              numbers: six queues weighted 1:2:3:1:2:3, two whose
              capability binds (cpu for f2, memory for f5), one cpu-heavy
              and one memory-heavy, requests in mixed units (cpu 250m-3,
-             memory 1G-4Gi); a 1000-gang burst of 10-pod gangs, then 12
+             memory 1G-4Gi); a 1000-gang burst of 10-pod gangs, then 4
              waves of 10 gangs. Checks: every cycle bind for bind against
              a plain-route twin (device="cpu") with every kernel launch
              held against the plain version, no queue past its
@@ -270,7 +296,7 @@ checkout, then, printing one JSON line per phase:
              weighted tree at BASELINE #5's scale (1000 nodes of 8 cpu,
              500 gangs of 10 at 1-3 cpu, one steady cycle): the card's
              binds and split equal to the plain route's;
-22. faults - the device-fault ladder on the card: the cycle cell (a
+23. faults - the device-fault ladder on the card: the cycle cell (a
              1000-gang burst, 12 waves of 10 gangs) beside a CPU twin that
              skips allocate wherever the card's failed or was abandoned,
              bind for bind. Armed in turn on the card only: slow_action
@@ -290,7 +316,7 @@ checkout, then, printing one JSON line per phase:
              a CPU twin: the same evictions, the device claimers through
              the eviction solves. At the end every pod bound once, gangs
              whole, no node over its allocatable, the breaker closed;
-23. sim    - the simulator (volcano_tpu_torch.sim) on bench.py
+24. sim    - the simulator (volcano_tpu_torch.sim) on bench.py
              sim_quality()'s workload, not cut (seed 123, 500 cycles and
              a drain of 100, 22 nodes of 32 cpu, 6710 pods): each arm a
              child process (--role simarm) at once — solver, sharded and
@@ -310,7 +336,7 @@ checkout, then, printing one JSON line per phase:
              rest, launches; the reference's defrag trio and the cycle
              where the solver and sharded arms part (the round cap) are
              reported;
-24. standalone - the control plane in one process: (a) Standalone on the
+25. standalone - the control plane in one process: (a) Standalone on the
              card at the cycle cell's scale (2000 nodes, 20 of them with
              GPU cards), 1000 vcjobs as YAML through apply_job_yaml with
              20 required-affinity, 20 PVC and 20 shared-GPU jobs above and
@@ -324,8 +350,9 @@ checkout, then, printing one JSON line per phase:
              example/mpi-job.yaml, example/tensorflow-job.yaml and a
              generated job through `python -m volcano_tpu_torch.cli`,
              every pod bound, `job list` and `status` over the wire, exit 0
-             on SIGTERM;
-25. deploy - installer_torch/docker-compose.yaml's two command lines as
+             on SIGTERM; beside it the same binary with --serial-solver,
+             whose /metrics carries no overlap window's phase gauge;
+26. deploy - installer_torch/docker-compose.yaml's two command lines as
              written (paths and ports re-pointed under build/, a loopback
              --serve-store added): the control plane (--device cpu
              --sidecar) first, the solver sidecar 5 s later on an empty
@@ -338,7 +365,8 @@ checkout, then, printing one JSON line per phase:
              lines); a CUDA context (the device files) and the kernel
              library mapped in the sidecar only; the binds equal to the
              same command line with the solver in process over a store
-             seeded alike; /healthz,
+             seeded alike (run beside the restart below, inside its
+             breaker cooldown); /healthz,
              the Prometheus template's series, admission over mutual TLS
              (a signed client served, a self-signed one refused); three
              waves, the sidecar SIGKILLed in one until the breaker opens,
@@ -350,7 +378,7 @@ checkout, then, printing one JSON line per phase:
              `sidecar_unavailable`), the restarted sidecar removes that
              socket before it builds, and its first answer binds on the
              card with a full ship; SIGTERM, exit 0;
-26. the kernels line, then the result line.
+27. the kernels line, then the result line.
 
 `--phases kernel,edges` runs a subset (device and build always run) and
 then prints neither of the last two lines.
@@ -1029,7 +1057,326 @@ def phase_profile(dev):
                             for us, c, k in rows[:12]]})
 
 
-# -- the scheduling cycle (bench.py full_cycle()'s scale) -------------------
+# -- the JAX package's headline: churned sessions through one arena ---------
+
+#: bench.py headline()'s pipelined run (:380-556), not cut: the headline
+#: problem, `warm` warm-up and `sessions` timed synchronous sessions, then
+#: 2 * `sessions` through SessionPipeline(depth) over one arena, with
+#: `churn_jobs` jobs rotated out and `churn_nodes` node rows dirtied per
+#: session (bench.py SESSIONS, CHURN_JOBS, CHURN_NODES); then `gated`
+#: sessions with session 0's collect held (the arena-hazard step)
+HEADLINE_RUN = dict(HEADLINE, warm=4, sessions=8, depth=2, churn_jobs=10,
+                    churn_nodes=20, gated=3)
+#: device cycles session 0 of the gated step sleeps after its solve, so its
+#: readback is still queued when session 1 scatters into the arena
+GATED_SLEEP_CYCLES = 100_000_000
+
+
+class HeadlineChurn:
+    """bench.py headline()'s churn script (:257-285) on the port's api.
+    ``churn(s)`` leaves jobs ``s * churn_jobs`` .. ``+ churn_jobs`` (mod
+    the job count) out of session s's pending set and, on ``churn_nodes``
+    node rows, adds a running 1-cpu / 1Gi pod where the row holds none of
+    the script's and removes it where it does (NodeInfo.add_task /
+    remove_task). Returns the session's (jobs, tasks, grouped)."""
+
+    def __init__(self, problem, churn_jobs: int, churn_nodes: int):
+        self.jobs, self.nodes, tasks, self.queues = problem
+        self.node_list = list(self.nodes.values())
+        self.churn_jobs, self.churn_nodes = churn_jobs, churn_nodes
+        self.tasks_by_job: dict = {}
+        for t in tasks:
+            self.tasks_by_job.setdefault(t.job, []).append(t)
+        self.held: dict = {}
+
+    def __call__(self, s: int):
+        from volcano_tpu_torch.api import TaskInfo, TaskStatus
+        from volcano_tpu_torch.api.types import POD_GROUP_ANNOTATION
+        from volcano_tpu_torch.models import Pod
+        n_jobs, n_nodes = len(self.jobs), len(self.node_list)
+        lo = (s * self.churn_jobs) % n_jobs
+        excl = {f"bench/j{(lo + d) % n_jobs}"
+                for d in range(self.churn_jobs)}
+        jobs_s = {u: j for u, j in self.jobs.items() if u not in excl}
+        grouped = [(j, self.tasks_by_job[u]) for u, j in jobs_s.items()]
+        tasks_s = [t for _, ts in grouped for t in ts]
+        for d in range(self.churn_nodes):
+            ni = self.node_list[(s * self.churn_nodes + d) % n_nodes]
+            t = self.held.pop(ni.name, None)
+            if t is not None:
+                ni.remove_task(t)
+            else:
+                t = TaskInfo(Pod(
+                    name=f"churn-{ni.name}", namespace="bench",
+                    node_name=ni.name, phase="Running",
+                    annotations={POD_GROUP_ANNOTATION: "j0"},
+                    containers=[{"requests": {"cpu": "1",
+                                              "memory": "1Gi"}}]))
+                t.status = TaskStatus.RUNNING
+                ni.add_task(t)
+                self.held[ni.name] = t
+        return jobs_s, tasks_s, grouped
+
+
+class HeadlineSessions:
+    """The headline's sessions on ``dev`` (a CUDA device, or ``"cpu"``
+    for the plain route): one churned problem (``sc``: HEADLINE_RUN's
+    keys), one FlattenCache, one PackedDeviceCache on ``dev``. Each
+    session churns, flattens, fills the queue demand
+    (SnapshotArrays.fill_queue_demand), packs and updates the arena, and
+    solves with queue caps and binpack scores (bench.py's ``_params``)."""
+
+    def __init__(self, dev, sc: dict):
+        from volcano_tpu_torch.ops import FlattenCache, PackedDeviceCache
+        problem = make_problem(sc["n_nodes"], sc["n_jobs"],
+                               sc["tasks_per_job"], cpu=sc.get("cpu", "32"),
+                               mem=sc.get("mem", "128Gi"))
+        self.churn = HeadlineChurn(problem, sc["churn_jobs"],
+                                   sc["churn_nodes"])
+        self.fcache = FlattenCache()
+        self.dc = PackedDeviceCache(device=dev)
+        self.dev = self.dc.device
+        self.shape = None    # (T, N, R) of the last flatten
+
+    def pack(self, s: int) -> tuple:
+        """Session s's (fbuf, ibuf, layout, pending tasks, score params)."""
+        from volcano_tpu_torch.ops import flatten_snapshot
+        jobs_s, tasks_s, grouped = self.churn(s)
+        arr = flatten_snapshot(jobs_s, self.churn.nodes, tasks_s,
+                               queues=self.churn.queues, cache=self.fcache,
+                               grouped=grouped)
+        arr.fill_queue_demand()
+        self.shape = (arr.T, arr.N, arr.R)
+        fbuf, ibuf, layout = arr.packed()
+        return (fbuf, ibuf, layout, len(tasks_s),
+                score_params(arr, binpack_weight=1.0))
+
+    def sync(self, s: int) -> dict:
+        """One synchronous session (host params, as bench.py's): ms from
+        the churned snapshot to the decoded result, and its split."""
+        from volcano_tpu_torch.ops import decode_compact
+        from volcano_tpu_torch.ops import solver
+        t0 = time.perf_counter()
+        fbuf, ibuf, layout, _, params = self.pack(s)
+        t1 = time.perf_counter()
+        f2d, i2d = self.dc.update(fbuf, ibuf, layout)
+        t2 = time.perf_counter()
+        res = solver.solve_allocate_packed2d(f2d, i2d, layout, params,
+                                             use_queue_cap=True)
+        decode_compact(res.compact)
+        t3 = time.perf_counter()
+        return {"ms": (t3 - t0) * 1e3, "pack_ms": (t1 - t0) * 1e3,
+                "update_ms": (t2 - t1) * 1e3, "solve_ms": (t3 - t2) * 1e3}
+
+    def pipelined(self, first: int, n: int, depth: int,
+                  gated: bool = False) -> dict:
+        """Sessions ``first`` .. ``first + n - 1`` through
+        SessionPipeline(depth). Before each submit, on this thread, as
+        bench.py :453-464: churn, flatten, pack, ``update`` (the in-place
+        scatter into the arena) and ``params_device``. ``dispatch`` solves
+        on the arena and starts the readback; ``collect`` waits for it and
+        decodes. ``gated``: session 0's collect waits until session 1's
+        update scattered and its solve was dispatched (on CUDA, session 0
+        also sleeps the stream after its solve, so its readback is still
+        queued then). Returns the tickets, each session's inputs, the
+        arena's accounting per session, the caller thread's ms per session
+        (pack; update and params; submit), overlap_pairs and the wall
+        ms."""
+        import threading
+
+        from volcano_tpu_torch.ops import (
+            SessionPipeline, decode_compact, start_readback,
+        )
+        from volcano_tpu_torch.ops import solver
+        gate = threading.Event()
+
+        def session(f2d, i2d, layout, params, held: bool):
+            def dispatch():
+                res = solver.solve_allocate_packed2d(
+                    f2d, i2d, layout, params, use_queue_cap=True)
+                if held and self.dev.type == "cuda":
+                    torch.cuda._sleep(GATED_SLEEP_CYCLES)
+                return start_readback(res.compact)
+
+            def collect(rb):
+                if held and not gate.wait(CHILD_TIMEOUT_S):
+                    raise AssertionError("the gated session was never "
+                                         "released")
+                return decode_compact(rb.wait()[0])
+            return dispatch, collect
+
+        refs, arena, split = [], [], []
+        pipe = SessionPipeline(depth=depth)
+        t0 = time.perf_counter()
+        try:
+            for i in range(n):
+                t1 = time.perf_counter()
+                fbuf, ibuf, layout, n_tasks, params = self.pack(first + i)
+                refs.append((fbuf, ibuf, layout, n_tasks, params))
+                t2 = time.perf_counter()
+                f2d, i2d = self.dc.update(fbuf, ibuf, layout)
+                arena.append((self.dc.last_shipped_bytes,
+                              self.dc.last_shipped_chunks,
+                              self.dc.last_full_ship))
+                pdev = self.dc.params_device(params)
+                t3 = time.perf_counter()
+                pipe.submit(first + i, *session(f2d, i2d, layout, pdev,
+                                                gated and i == 0))
+                split.append(((t2 - t1) * 1e3, (t3 - t2) * 1e3,
+                              (time.perf_counter() - t3) * 1e3))
+                if i == 1:
+                    gate.set()
+            tickets = pipe.drain(timeout=6 * CHILD_TIMEOUT_S)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            overlap = pipe.overlap_pairs()
+        finally:
+            gate.set()
+            pipe.close()
+        return {"tickets": tickets, "refs": refs, "arena": arena,
+                "split": split, "overlap_pairs": overlap, "wall_ms": wall_ms,
+                "events": [(kind, tag - first) for kind, tag, _
+                           in pipe.events],
+                "last": (f2d, i2d, layout, pdev)}
+
+    def cold(self, ref, fused: str = "auto"):
+        """A cold solve of a session's packed buffers: a fresh full upload
+        of the padded buffers (no arena), host params."""
+        from volcano_tpu_torch.ops import solver
+        fbuf, ibuf, layout, _, params = ref
+        c = self.dc.chunk
+        bufs = []
+        for buf in (fbuf, ibuf):
+            n = -(-max(buf.size, 1) // c)
+            pad = np.zeros(n * c, buf.dtype)
+            pad[:buf.size] = buf
+            bufs.append(torch.from_numpy(pad.reshape(n, c)).to(self.dev))
+        return solver.solve_allocate_packed2d(
+            *bufs, layout, params, use_queue_cap=True, fused=fused), bufs
+
+
+def headline_identical(h, run, plain: bool) -> int:
+    """Every pipelined session's assigned and kind equal, bit for bit, to
+    a cold solve of its packed buffers; with ``plain``, also held against
+    the same cold solve on the kernel's plain version (solve_checks: the
+    same fates, other nodes only where the scores tie). Returns the count
+    of tied choices that differ from the plain route."""
+    from volcano_tpu_torch.ops import decode_compact
+    from volcano_tpu_torch.ops.convert import to_torch_params
+    from volcano_tpu_torch.ops.solver import _packed_len, _unpack
+    tied = 0
+    for t, ref in zip(run["tickets"], run["refs"]):
+        got_a, got_k = t.result()
+        res, bufs = h.cold(ref)
+        want_a, want_k = decode_compact(res.compact)
+        if not (np.array_equal(got_a, want_a)
+                and np.array_equal(got_k, want_k)):
+            raise AssertionError(f"headline session {t.tag}: the pipelined "
+                                 f"result differs from the cold solve at "
+                                 f"{int((got_a != want_a).sum())} tasks")
+        if plain:
+            layout, params = ref[2], ref[4]
+            f2d, i2d = bufs
+            d = _unpack(f2d.reshape(-1)[:_packed_len(layout, True)],
+                        i2d.reshape(-1)[:_packed_len(layout, False)], layout)
+            res_p, _ = h.cold(ref, fused="off")
+            host = SimpleNamespace(numpy_dict=lambda: {
+                k: v.cpu().numpy() for k, v in d.items()})
+            tied += solve_checks(host, d, res, res_p,
+                                 to_torch_params(params, h.dev),
+                                 ("binpack",))
+    return tied
+
+
+def phase_headline(dev, scale=None) -> dict:
+    """bench.py headline()'s pipelined run on the card: warm-up and timed
+    synchronous sessions, then 2 * sessions through SessionPipeline over
+    one arena, every one held bit for bit against its cold solve and
+    against the plain route; then the gated step (session 0's collect held
+    until session 1 has scattered into the arena and dispatched), every
+    launch held against the plain version and each session against its
+    cold solve. One row."""
+    from volcano_tpu_torch.ops import fused_choice as fc
+    from volcano_tpu_torch.ops import solver
+    if torch.device(dev).type != "cuda":
+        raise AssertionError("the headline phase runs on a CUDA device")
+    sc = dict(HEADLINE_RUN, **(scale or {}))
+    h = HeadlineSessions(dev, sc)
+    warm, n = sc["warm"], sc["sessions"]
+    for s in range(warm):
+        h.sync(s)
+    if scale is None and (h.shape[:2] != KERNEL_SHAPE or h.shape[2] != 2):
+        raise AssertionError(f"headline shape {h.shape}")
+    sync = [h.sync(s) for s in range(warm, warm + n)]
+    sync_ms = [r["ms"] for r in sync]
+    s0 = 8 + 4 * n            # bench.py's first pipelined session
+    before = (h.dc.sessions, h.dc.delta_sessions)
+    # the main path's run: the count set to 0 just before, read after
+    fc.fused_choice.launches = 0
+    run = h.pipelined(s0, 2 * n, sc["depth"])
+    launches = fc.fused_choice.launches
+    if launches <= 0 or any(full for _, _, full in run["arena"]):
+        raise AssertionError(f"the pipelined sessions: {launches} "
+                             f"launches, arena {run['arena']}")
+    # steady wall: the gaps between consecutive collects once the first
+    # `depth` sessions filled the pipe (bench.py :469-474)
+    cts = [t.t_collected for t in run["tickets"]]
+    gaps = list(np.diff(cts)[sc["depth"]:] * 1e3)
+    f2d, i2d, layout, pdev = run["last"]
+    dev_ms, _ = device_ms(lambda: solver.solve_allocate_packed2d(
+        f2d, i2d, layout, pdev, use_queue_cap=True), calls=8, warmup=1)
+    tied = headline_identical(h, run, plain=True)
+    sessions = h.dc.sessions - before[0]
+    hits = h.dc.delta_sessions - before[1]
+    shipped = [b for b, _, _ in run["arena"]]
+    full = h.dc.full_upload_bytes()
+    # the arena hazard: session s+1 scatters in place into the buffers
+    # session s's solve read while s's readback is still in flight
+    with KernelAudit() as audit:
+        gated = h.pipelined(s0 + 2 * n, sc["gated"], sc["depth"],
+                            gated=True)
+    headline_identical(h, gated, plain=False)
+    order = gated["events"]
+    # session 1 dispatched while 0 was held; depth 2 admitted session 2
+    # only once 0 was collected
+    if not (order.index(("dispatch", 1)) < order.index(("collect", 0))
+            < order.index(("dispatch", 2))) \
+            or audit.summary()["launches_checked"] <= 0:
+        raise AssertionError(f"headline gated step: order {order}, "
+                             f"{audit.summary()}")
+    if not arena_equals_mirror(h.dc):
+        raise AssertionError("headline: the arena drifted from its mirror")
+    T, N, R = h.shape
+    row = {"phase": "headline", "T": T, "N": N, "R": R,
+           "sync_sessions": n, "sync_p50_ms": statistics.median(sync_ms),
+           "sync_ms": sync_ms,
+           "sync_split_p50_ms": {k: statistics.median(r[k] for r in sync)
+                                 for k in ("pack_ms", "update_ms",
+                                           "solve_ms")},
+           "pipeline_depth": sc["depth"],
+           "pipeline_sessions": 2 * n,
+           "steady_wall_p50_ms": statistics.median(gaps),
+           "steady_wall_gaps_ms": gaps,
+           "pipelined_split_p50_ms": {k: statistics.median(
+               x[i] for x in run["split"]) for i, k in enumerate(
+                   ("pack_ms", "update_and_params_ms", "submit_ms"))},
+           "pipeline_wall_ms_total": run["wall_ms"],
+           "device_ms_per_session": dev_ms,
+           "device_share_of_steady_wall": dev_ms / statistics.median(gaps),
+           "bytes_shipped_per_session": statistics.mean(shipped),
+           "full_upload_bytes": full,
+           "bytes_shipped_pct_of_full":
+               100.0 * statistics.mean(shipped) / full,
+           "dirty_chunks_mean": statistics.mean(
+               c for _, c, _ in run["arena"]),
+           "arena_hit_rate": hits / sessions,
+           "overlap_pairs": run["overlap_pairs"], "launches": launches,
+           "identical_to_cold": True, "plain_route_fates_equal": True,
+           "plain_route_tied_diffs": tied,
+           "gated": {"sessions": sc["gated"], "identical_to_cold": True,
+                     "order": order, **audit.summary()},
+           "arena_matches_mirror": True}
+    emit(row)
+    return row
 
 CYCLE = dict(n_nodes=2000, n_jobs=1000, tasks_per_job=10, wave_jobs=10,
              warm_waves=20, steady_cycles=12)
@@ -1053,15 +1400,15 @@ class StoreCluster:
     ``queues`` ([(name, weight, annotations)]), ``gpus`` (nvidia.com/gpu
     per node), ``gpu_every`` (every such gang's pods ask for 1 GPU, as in
     bench.py's make_problem), ``size_stride`` (gang k's cpu request is
-    1 + (k // size_stride) % 3), ``conf`` and ``solver_mode`` (the
-    Scheduler's) shape other clusters.
+    1 + (k // size_stride) % 3), ``conf``, ``solver_mode`` and
+    ``pipeline_solver`` (the Scheduler's) shape other clusters.
     FakeBinder records the binds."""
 
     def __init__(self, dev, n_nodes: int, n_jobs: int = 0,
                  tasks_per_job: int = 10, cpu: str = "32", mem: str = "128Gi",
                  shared_arena=None, queues=None, gpus: int = 0,
                  gpu_every: int = 0, size_stride: int = 1, conf=None,
-                 solver_mode=None):
+                 solver_mode=None, pipeline_solver: bool = True):
         from volcano_tpu_torch.cache import (
             FakeBinder, FakeEvictor, SchedulerCache,
         )
@@ -1100,7 +1447,8 @@ class StoreCluster:
         self.req: dict = {}      # pod key -> (cpu, memory bytes, gpu)
         self.submit(n_jobs)
         self.sched = Scheduler(self.cache, scheduler_conf=conf,
-                               solver_mode=solver_mode)
+                               solver_mode=solver_mode,
+                               pipeline_solver=pipeline_solver)
 
     def submit(self, n_jobs: int, cpu_per_pod: int = 0) -> list:
         """``n_jobs`` new gangs, round-robin over the queues;
@@ -1411,7 +1759,11 @@ def phase_cycle(dev, scale=None) -> dict:
     burst, a measured burst on a fresh identical cluster sharing the warm
     arena, warm-up waves, then timed steady cycles of one wave each; the
     async readback checked in one cycle; a steady cycle profiled; a small
-    churned cluster card vs host."""
+    churned cluster card vs host. The serial-solver arm
+    (Scheduler(pipeline_solver=False), the standalone's --serial-solver)
+    runs the same burst and waves on its own cluster and arena, cycle for
+    cycle beside the pipelined one (steady cycles in turns, ABBA), its
+    binds equal bind for bind."""
     sc = dict(CYCLE, **(scale or {}))
     n, j, tpj = sc["n_nodes"], sc["n_jobs"], sc["tasks_per_job"]
     t0 = time.perf_counter()
@@ -1432,6 +1784,20 @@ def phase_cycle(dev, scale=None) -> dict:
     emit({"phase": "cycle", "regime": "burst", "nodes": n,
           "pods": j * tpj, "build_s": build_s,
           "warmup_cycle_ms": warm_row["cycle_ms"], **burst})
+    serial = StoreCluster(dev, n, j, tpj, pipeline_solver=False)
+
+    def serial_checked(what: str, row: dict, gangs=None) -> dict:
+        """A serial-arm cycle's row, once the pipelined arm ran the same
+        cycle: its binds equal, launched, and no overlap window."""
+        serial.check(f"serial {what}", gangs=gangs)
+        same = serial.cache.binder.binds == c.cache.binder.binds
+        if not same or row["launches"] <= 0 or "overlap_ms" in row:
+            raise AssertionError(f"serial-solver {what}: binds equal "
+                                 f"{same}, {row}")
+        return row
+
+    serial_burst = serial_checked("burst", serial.run_cycle(),
+                                  gangs=list(serial.gangs))
 
     # warm-up waves (the steady shape's first cycle re-ships the arena),
     # then the timed steady cycles, one wave of wave_jobs gangs each
@@ -1446,12 +1812,18 @@ def phase_cycle(dev, scale=None) -> dict:
         c.check(f"warm-up wave {i}", gangs=gangs)
         if row["launches"] <= 0:
             raise AssertionError(f"warm-up wave {i} launched no kernel")
+        gangs = serial.submit(w)
+        serial_checked(f"warm-up wave {i}", serial.run_cycle(), gangs)
     emit({"phase": "cycle_audit",
           "burst": audit_burst.summary(), "steady": audit_steady.summary(),
           "equal": True})
-    rows = []
+    rows, serial_rows = [], []
     for s in range(sc["steady_cycles"]):
         gangs = c.submit(w)
+        serial_gangs = serial.submit(w)
+        serial_first = s % 4 in (1, 2)    # the arms in turns, ABBA
+        if serial_first:
+            serial_row = serial.run_cycle()
         if s == 1:
             with ReadbackProbe() as probe:
                 row = c.run_cycle()
@@ -1459,6 +1831,10 @@ def phase_cycle(dev, scale=None) -> dict:
         else:
             row = c.run_cycle()
         c.check(f"steady cycle {s}", gangs=gangs)
+        if not serial_first:
+            serial_row = serial.run_cycle()
+        serial_rows.append(serial_checked(f"steady cycle {s}", serial_row,
+                                          serial_gangs))
         if row["binds"] != w * tpj or row["launches"] <= 0:
             raise AssertionError(f"steady cycle {s}: {row['binds']} binds, "
                                  f"{row['launches']} launches")
@@ -1499,12 +1875,29 @@ def phase_cycle(dev, scale=None) -> dict:
           "launches_per_cycle": [r["launches"] for r in rows],
           "binds_per_cycle": [r["binds"] for r in rows],
           "cycles_ms": [r["cycle_ms"] for r in rows]})
+    serial_arm = {"binds_identical": True,
+                  "burst_cycle_ms": serial_burst["cycle_ms"],
+                  "cycle_ms": cycle_stats(serial_rows, "cycle_ms"),
+                  "readback_ms": cycle_stats(serial_rows, "readback_ms"),
+                  "overlap_ms": None,
+                  "solve_ms": cycle_stats(serial_rows, "solve_ms"),
+                  "cycles_ms": [r["cycle_ms"] for r in serial_rows],
+                  "launches_per_cycle": [r["launches"]
+                                         for r in serial_rows]}
+    emit({"phase": "cycle", "regime": "serial_solver",
+          "pipelined": {k: cycle_stats(rows, k) for k in (
+              "cycle_ms", "readback_ms", "overlap_ms", "solve_ms")},
+          "serial": serial_arm})
+    serial_launches = serial_burst["launches"] + sum(
+        r["launches"] for r in serial_rows)
+    del serial
     emit({"phase": "cycle_readback", "cycle_elements": readback_elems,
           **readback_stress(dev), "equal_to_blocking_copy": True})
     prof = profile_cycle(c, w)
     emit({"phase": "cycle", **event_cycles(c)})
     emit({"phase": "cycle_small", **small_cycle_pair(dev)})
-    return {"burst": burst, "steady": rows, "profile": prof}
+    return {"burst": burst, "steady": rows, "profile": prof,
+            "serial_launches": serial_launches}
 
 
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
@@ -3630,9 +4023,12 @@ NETSTORE = dict(n_nodes=CYCLE["n_nodes"], n_jobs=CYCLE["n_jobs"],
 NETHA = dict(n_nodes=CYCLE["n_nodes"], n_jobs=CYCLE["n_jobs"],
              tasks_per_job=10, wave_jobs=10, waves=6, kill_exit=2,
              kill_sigkill=4, period=0.25, arms=("warm", "cold"))
-#: the client's transport retries: 10 attempts back off 0.1 s to 2 s,
-#: about 13 s in all, past a store process's restart
-NET_RETRIES = 10
+#: the client's transport retries: 20 attempts back off 0.1 s to 2 s,
+#: about 33 s in all (16.5 s at the least jitter), past a store process's
+#: restart: on the card's machine its interpreter, torch import, CUDA
+#: start and WAL replay took 9.6 s on one host, and 10 attempts (about
+#: 13 s, 6.5 s at the least) ran out on a slower one
+NET_RETRIES = 20
 #: how long a child process may take to reach a state it reports
 CHILD_TIMEOUT_S = 240.0
 
@@ -5944,7 +6340,7 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def standalone_binary(dev) -> dict:
+def standalone_binary(dev, serial: bool = False) -> dict:
     """``python -m volcano_tpu_torch.standalone --serve-store`` as a child
     on the card: nodes created over the wire, example/mpi-job.yaml,
     example/tensorflow-job.yaml and a generated job submitted with
@@ -5953,7 +6349,11 @@ def standalone_binary(dev) -> dict:
     and its memory map holding libcuda and the fused_choice kernel
     library (loaded only to launch the kernel on CUDA tensors);
     SIGTERM, exit 0. The card's compute-process list is printed but not
-    read: inside the machine's PID namespace it shows no usable PIDs."""
+    read: inside the machine's PID namespace it shows no usable PIDs.
+    ``serial``: with ``--serial-solver``; its /metrics then carries the
+    readback's phase gauge and no overlap window's, where the pipelined
+    binary's carries both."""
+    import re
     import signal
     import tempfile
     from volcano_tpu_torch.client import RemoteClusterStore
@@ -5964,7 +6364,8 @@ def standalone_binary(dev) -> dict:
     t0 = time.perf_counter()
     proc = subprocess.Popen(
         [sys.executable, "-m", "volcano_tpu_torch.standalone",
-         "--serve-store", addr, "--metrics-port", "0", "--period", "0.2"],
+         "--serve-store", addr, "--metrics-port", "0", "--period", "0.2"]
+        + (["--serial-solver"] if serial else []),
         cwd=REPO, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
     log: list = []
@@ -6042,6 +6443,16 @@ def standalone_binary(dev) -> dict:
         maps = open(f"/proc/{proc.pid}/maps").read()
         on_card = {"libcuda": "libcuda.so" in maps,
                    "fused_choice_library": "fused_choice" in maps}
+        metrics_port = re.search(r"metrics on :(\d+)", next(
+            x for x in log if "standalone up" in x)).group(1)
+        _, metrics_text = http_get(
+            f"http://127.0.0.1:{metrics_port}/metrics")
+        phases = {p: f'volcano_session_phase_milliseconds{{phase="{p}"}}'
+                  in metrics_text for p in ("overlap", "readback")}
+        if phases != {"overlap": not serial, "readback": True}:
+            raise AssertionError(f"the standalone binary (serial solver "
+                                 f"{serial}) exported the phase gauges "
+                                 f"{phases}")
         remote.close()
         remote = None
         proc.send_signal(signal.SIGTERM)
@@ -6050,6 +6461,7 @@ def standalone_binary(dev) -> dict:
             raise AssertionError(f"the standalone binary exited {rc} on "
                                  f"SIGTERM:\n" + "\n".join(log[-40:]))
         return {"phase": "standalone", "regime": "binary",
+                "serial_solver": serial, "phase_gauges": phases,
                 "cmdline": cmdline[1:3], "up_ms": up_ms,
                 "pods_bound": len(bound), "submit_to_bound_ms": bound_ms,
                 "job_list_lines": len(listed.splitlines()),
@@ -6114,12 +6526,19 @@ def phase_standalone(dev, scale=None) -> dict:
     if min(res["passes"].values()) <= 0:
         raise AssertionError(f"standalone: a host pass of allocate bound "
                              f"no host-only job: {res['passes']}")
-    binary = standalone_binary(dev)
-    emit(binary)
-    if not all(binary["mapped"].values()):
-        raise AssertionError(f"the standalone binary did not load libcuda "
-                             f"and the kernel library: "
-                             f"{binary['mapped']}")
+    # the binary as deployed and with --serial-solver, side by side
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(2) as pool:
+        binaries = [f.result() for f in [
+            pool.submit(standalone_binary, dev, serial)
+            for serial in (False, True)]]
+    for binary in binaries:
+        emit(binary)
+        if not all(binary["mapped"].values()):
+            raise AssertionError(f"the standalone binary did not load "
+                                 f"libcuda and the kernel library: "
+                                 f"{binary['mapped']}")
+    binary = binaries[0]
     import shutil
     shutil.rmtree(tmp, ignore_errors=True)
     out = {"phase": "standalone", "regime": "summary",
@@ -6129,15 +6548,18 @@ def phase_standalone(dev, scale=None) -> dict:
            "host_passes_jobs_bound": res["passes"],
            "host_passes_kinds": res["pass_kinds"],
            "launches": res["launches"], "twin_launches": done["launches"],
-           "binary_pods_bound": binary["pods_bound"]}
+           "binary_pods_bound": binary["pods_bound"],
+           "serial_binary_pods_bound": binaries[1]["pods_bound"]}
     emit(out)
     return out
 
 
 # -- fair share on the card, away from friendly numbers ----------------------
 
+#: 4 waves, not the cycle cell's 12: the plain-route twin's capped solve
+#: on the CPU paces this phase
 FAIRSHARE = dict(n_nodes=CYCLE["n_nodes"], n_jobs=CYCLE["n_jobs"],
-                 tasks_per_job=10, wave_jobs=10, waves=12,
+                 tasks_per_job=10, wave_jobs=10, waves=4,
                  hdrf=dict(n_nodes=1000, n_jobs=500, steady_cycles=1))
 #: six queues 1:2:3:1:2:3 (name, weight, capability, profile): two whose
 #: capability binds (at about a third of their burst demand, cpu for f2,
@@ -6401,7 +6823,7 @@ def phase_fairshare(dev, scale=None, twins=None) -> dict:
     """Fair share on the card away from friendly numbers: six queues
     1:2:3:1:2:3, two capability-bound, one cpu-heavy and one memory-heavy,
     requests in mixed units, at the cycle cell's scale (a 1000-gang burst
-    of 10-pod gangs, then 12 waves of 10 gangs) under the default conf,
+    of 10-pod gangs, then 4 waves of 10 gangs) under the default conf,
     every cycle bind for bind against a plain-route twin (a child); the
     card's water fill against the host plugin's; then drf.enableHierarchy
     on a ragged weighted tree at BASELINE #5's scale, the card's split
@@ -7143,12 +7565,13 @@ def wait_bound(remote, want: int, timeout: float, what: str,
 
 
 def deploy_twin(cp_argv, env, data_dir: str, port: int, want: int,
-                timeout: float) -> dict:
+                timeout: float, flags: dict) -> dict:
     """The compose file's control plane with the solver in process on
     the card (``--device cuda``, no ``--sidecar``) over the seeded data
-    dir; its binds once ``want`` pods are bound."""
+    dir; its binds once ``want`` pods are bound. ``flags``: its own
+    listeners' ports (it runs beside another control plane)."""
     from volcano_tpu_torch.client import RemoteClusterStore
-    argv = list(cp_argv)
+    argv = repoint(cp_argv, {}, flags)
     i = argv.index("--sidecar")
     del argv[i:i + 2]
     argv[argv.index("--device") + 1] = "cuda"
@@ -7317,7 +7740,8 @@ def phase_deploy(dev, scale=None) -> dict:
     os.makedirs(jobs_dir)
     certs = deploy_certs(tmp)
     ports = {k: _free_port() for k in ("store", "metrics", "webhook",
-                                       "twin", "restart")}
+                                       "twin", "twin_metrics",
+                                       "twin_webhook", "restart")}
     addr = f"127.0.0.1:{ports['store']}"
     cmds = compose_commands()
     paths = {"/run/volcano/solver.sock": sock,
@@ -7559,16 +7983,24 @@ def phase_deploy(dev, scale=None) -> dict:
         if rc_cp or rc_side or not out["socket_gone"]:
             raise AssertionError(f"deploy: SIGTERM left {out['exit_codes']}"
                                  f", socket gone {out['socket_gone']}")
-        # -- 8. the pod restarted behind a killed sidecar ------------------
-        restart = deploy_restart(cp_argv, cp_env, sc_argv, sc_env, sock,
-                                 restarted, ports["restart"], len(binds),
-                                 sc, procs)
+        # -- 8. the pod restarted behind a killed sidecar, and 4. the
+        # twin (the solver in process) beside it: the restart waits out
+        # the breaker's 30 s cooldown, the twin binds in about 25 s --------
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(1) as pool:
+            twin_run = pool.submit(
+                deploy_twin, cp_argv, cp_env, seeded, ports["twin"],
+                len(binds), 2 * CHILD_TIMEOUT_S, {
+                    "--webhook-bind": f"127.0.0.1:{ports['twin_webhook']}",
+                    "--metrics-port": str(ports["twin_metrics"])})
+            restart = deploy_restart(cp_argv, cp_env, sc_argv, sc_env,
+                                     sock, restarted, ports["restart"],
+                                     len(binds), sc, procs)
+            twin = twin_run.result()
         out["restart"] = {k: v for k, v in restart.items() if k != "binds"}
         out["launches"] += restart["launches"]
         emit({"phase": "deploy", "regime": "restart", **out["restart"]})
         # -- 4. decisions against the solver in process --------------------
-        twin = deploy_twin(cp_argv, cp_env, seeded, ports["twin"],
-                           len(binds), 2 * CHILD_TIMEOUT_S)
         if not out["seeded_before_ready"]:
             out["decisions"] = "not compared: the sidecar was ready " \
                 "before every object was submitted"
@@ -7601,7 +8033,8 @@ def arena_equals_mirror(dc) -> bool:
                             (dc._dev_i, dc._host_i)))
 
 
-PHASES = ("kernel", "edges", "small", "solve", "profile", "cycle", "hdrf",
+PHASES = ("kernel", "edges", "small", "solve", "profile", "headline",
+          "cycle", "hdrf",
           "evict", "sequential", "sharded", "reschedule", "prewarm",
           "sidecar", "failover", "lifecycle", "netstore", "netha",
           "netshard", "sim", "standalone", "fairshare", "faults", "deploy")
@@ -7702,7 +8135,8 @@ def main() -> int:
     out = {name: run(name, fn, dev) for name, fn in (
         ("kernel", phase_kernel), ("edges", phase_edges),
         ("small", phase_small), ("solve", phase_solve),
-        ("profile", phase_profile), ("cycle", phase_cycle),
+        ("profile", phase_profile), ("headline", phase_headline),
+        ("cycle", phase_cycle),
         ("hdrf", phase_hdrf), ("evict", phase_evict),
         ("sequential", phase_sequential), ("sharded", phase_sharded),
         ("reschedule", phase_reschedule), ("prewarm", phase_prewarm),
@@ -7751,8 +8185,9 @@ def main() -> int:
     main_launches = out["solve"][1]
     head = next(r for r in krows if r["R"] == 2 and r["eligible_rows"]
                 > 0.5 * r["T"] and r["families"] == ["binpack"])
-    # the main path: the scheduling cycle's measured burst and timed
-    # steady cycles, the hdrf cycles, the eviction cycles, the sharded
+    # the main path: the headline's pipelined sessions, the scheduling
+    # cycle's measured burst and timed steady cycles and its serial-solver
+    # arm's, the hdrf cycles, the eviction cycles, the sharded
     # cycles, the two reschedule passes, the prewarm arm's cycles (its
     # background warms counted apart), the sidecar server's solves (its
     # count read before and after each request) and the failover's
@@ -7781,7 +8216,9 @@ def main() -> int:
     resched_launches = sum(resched[k]["launches"]
                            for k in ("first", "second"))
     resched_k = resched["kernel"]
-    ring = {"prewarm": prewarm["launches"], "sidecar": sidecar["launches"],
+    ring = {"headline": out["headline"]["launches"],
+            "serial_cycles": cyc["serial_launches"],
+            "prewarm": prewarm["launches"], "sidecar": sidecar["launches"],
             "failover": failover["launches"],
             "lifecycle": lifecycle["launches"],
             "netstore": out["netstore"]["launches"],
@@ -7793,10 +8230,11 @@ def main() -> int:
             "faults": out["faults"]["launches"],
             "deploy": out["deploy"]["launches"]}
     if min(ring.values()) <= 0:
-        raise AssertionError(f"a path of the outer ring, the lifecycle, "
-                             f"the network, the sim, the standalone, fair "
-                             f"share, the fault ladder or the deployment "
-                             f"launched no kernel: {ring}")
+        raise AssertionError(f"the headline's pipeline, the serial "
+                             f"solver's cycles, a path of the outer ring, "
+                             f"the lifecycle, the network, the sim, the "
+                             f"standalone, fair share, the fault ladder or "
+                             f"the deployment launched no kernel: {ring}")
     emit({"kernels": [{
         "name": "fused_choice", "route": "cuda",
         "source": "volcano_tpu_torch/csrc/fused_choice.cu",
@@ -7834,6 +8272,8 @@ def main() -> int:
         "launches_faults": ring["faults"],
         "launches_deploy_sidecar": ring["deploy"],
         "launches_headline_solve": main_launches,
+        "launches_headline_pipeline": ring["headline"],
+        "launches_serial_cycles": ring["serial_cycles"],
         "max_abs_err": max(r["max_abs_err"]
                            for r in krows + [shard_k, resched_k]),
         "ms": head["ms"], "plain_ms": head["plain_ms"],

@@ -26,6 +26,14 @@ depend on session s's *results* (the scheduler's allocate action: binds
 feed the next snapshot) must keep collect inside the cycle and only get
 the start_readback overlap; callers with exogenous inputs get the full
 three-phase overlap.
+
+Arena safety: ``PackedDeviceCache.update`` scatters session s+1's dirty
+chunks in place into the buffers session s's solve read, while s may
+still be collecting. Both are enqueued on the caller's current stream, so
+the scatter runs after every kernel of s's solve, and ``start_readback``
+copies only the solve's result tensors, never the arena. The solve syncs
+the host every round, so ``dispatch()`` returns with its solve done and
+sessions do not overlap on the device.
 """
 
 from __future__ import annotations
