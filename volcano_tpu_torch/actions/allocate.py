@@ -40,6 +40,7 @@ from ..api.unschedule_info import (
     ALL_NODES_UNAVAILABLE, FitError, FitErrors, NODE_RESOURCE_FIT_FAILED,
 )
 from ..framework import Action
+from ..metrics import tracing
 from ..models import PodGroupPhase
 from ..utils import PriorityQueue
 
@@ -238,389 +239,389 @@ class AllocateAction(Action):
 
         timing = ssn.solver_options.setdefault("timing", {})
         breaker = getattr(ssn, "breaker", None)
-        t0 = _time.perf_counter()
-        host_only = ssn.solver_options.get("host_only_jobs") or ()
-        job_order = []
-        tasks_in_order = []
-        # the ordering pass: event-sourced when the OrderCache can serve
-        # this conf (O(changes since last cycle)), the live comparator
-        # walk otherwise — surfaced per cycle as order_{mode,ms,
-        # entries_patched,fallback_reason}
-        collected = self._collect(ssn)
-        order_ms = (_time.perf_counter() - t0) * 1e3
-        timing["order_ms"] = order_ms
-        oc = getattr(ssn, "order_cache", None)
-        if oc is not None:
-            timing["order_mode"] = oc.last_mode
-            timing["order_entries_patched"] = \
-                float(oc.last_entries_patched)
-            if oc.last_reason:
-                timing["order_fallback_reason"] = oc.last_reason
-        # host-only jobs (GPU sharing, required pod affinity, PVCs) that
-        # OUTRANK every device-path job run through the host loop BEFORE
-        # the solve, so per-job routing cannot invert priority (a
-        # top-priority GPU gang must not find its CPU eaten by
-        # lower-priority solver placements). Host-only jobs ranked mid
-        # -sequence still run after — an accepted coarsening of the
-        # reference's fully sequential order, noted in the contract.
-        pre_host, post_host = [], []
-        for job, tasks in collected:
-            if job.uid in host_only:
-                (post_host if job_order else pre_host).append(job.uid)
-                continue
-            if tasks:
-                job_order.append((job, tasks))
-                tasks_in_order.extend(tasks)
-        ssn.solver_options["_post_host_jobs"] = post_host
-        if pre_host:
-            self._execute_host(ssn, only_jobs=set(pre_host))
-        if not tasks_in_order:
-            return
+        # the phase keys are the durations of the spans (metrics.tracing);
+        # flatten_ms covers order_ms
+        with tracing.span("vc.flatten") as flattened:
+            with tracing.span("vc.order") as ordered:
+                host_only = ssn.solver_options.get("host_only_jobs") or ()
+                job_order = []
+                tasks_in_order = []
+                # the ordering pass: event-sourced when the OrderCache can
+                # serve this conf (O(changes since last cycle)), the live
+                # comparator walk otherwise — surfaced per cycle as
+                # order_{mode,ms,entries_patched,fallback_reason}
+                collected = self._collect(ssn)
+            timing["order_ms"] = ordered.ms
+            oc = getattr(ssn, "order_cache", None)
+            if oc is not None:
+                timing["order_mode"] = oc.last_mode
+                timing["order_entries_patched"] = \
+                    float(oc.last_entries_patched)
+                if oc.last_reason:
+                    timing["order_fallback_reason"] = oc.last_reason
+            # host-only jobs (GPU sharing, required pod affinity, PVCs) that
+            # OUTRANK every device-path job run through the host loop BEFORE
+            # the solve, so per-job routing cannot invert priority (a
+            # top-priority GPU gang must not find its CPU eaten by
+            # lower-priority solver placements). Host-only jobs ranked mid
+            # -sequence still run after — an accepted coarsening of the
+            # reference's fully sequential order, noted in the contract.
+            pre_host, post_host = [], []
+            for job, tasks in collected:
+                if job.uid in host_only:
+                    (post_host if job_order else pre_host).append(job.uid)
+                    continue
+                if tasks:
+                    job_order.append((job, tasks))
+                    tasks_in_order.extend(tasks)
+            ssn.solver_options["_post_host_jobs"] = post_host
+            if pre_host:
+                self._execute_host(ssn, only_jobs=set(pre_host))
+            if not tasks_in_order:
+                return
 
-        fc = getattr(ssn, "flatten_cache", None)
-        if fc is not None and getattr(fc, "events_enabled", False) \
-                and getattr(ssn, "_mutation_ops", 0):
-            # an earlier action in this cycle already mutated the session's
-            # clones; those deltas never reached the event ledger, so the
-            # event-sourced fast path must re-diff this cycle
-            fc.suppress_event_path("session_mutations")
-        t_fs = _time.perf_counter()
-        arr = flatten_snapshot(
-            {j.uid: j for j, _ in job_order}, ssn.nodes, tasks_in_order,
-            queues=ssn.queues, cache=fc, grouped=job_order)
-        fs_ms = (_time.perf_counter() - t_fs) * 1e3
-        if fc is not None:
-            # the event -> incremental -> cold ladder made observable:
-            # which assembly path this cycle's flatten took, how many rows
-            # it patched, and the patch-vs-full-pass latency split
-            timing["flatten_mode"] = fc.last_flatten_mode
-            timing["flatten_rows_patched"] = float(fc.last_rows_patched)
-            timing["flatten_events_applied"] = \
-                float(fc.last_events_applied)
-            if fc.last_flatten_mode == "event":
-                timing["flatten_patch_ms"] = fs_ms
-            else:
-                timing["flatten_full_ms"] = fs_ms
-            if fc.last_fallback_reason:
-                timing["flatten_fallback_reason"] = fc.last_fallback_reason
+            fc = getattr(ssn, "flatten_cache", None)
+            if fc is not None and getattr(fc, "events_enabled", False) \
+                    and getattr(ssn, "_mutation_ops", 0):
+                # an earlier action in this cycle already mutated the session's
+                # clones; those deltas never reached the event ledger, so the
+                # event-sourced fast path must re-diff this cycle
+                fc.suppress_event_path("session_mutations")
+            t_fs = _time.perf_counter()
+            arr = flatten_snapshot(
+                {j.uid: j for j, _ in job_order}, ssn.nodes, tasks_in_order,
+                queues=ssn.queues, cache=fc, grouped=job_order)
+            fs_ms = (_time.perf_counter() - t_fs) * 1e3
+            if fc is not None:
+                # the event -> incremental -> cold ladder made observable:
+                # which assembly path this cycle's flatten took, how many rows
+                # it patched, and the patch-vs-full-pass latency split
+                timing["flatten_mode"] = fc.last_flatten_mode
+                timing["flatten_rows_patched"] = float(fc.last_rows_patched)
+                timing["flatten_events_applied"] = \
+                    float(fc.last_events_applied)
+                if fc.last_flatten_mode == "event":
+                    timing["flatten_patch_ms"] = fs_ms
+                else:
+                    timing["flatten_full_ms"] = fs_ms
+                if fc.last_fallback_reason:
+                    timing["flatten_fallback_reason"] = fc.last_fallback_reason
 
-        # queue fairness: when proportion is active its session-open attrs
-        # (allocated/request over ALL jobs, incl. running-only queues) feed
-        # the in-kernel water-fill + per-round deserved caps
-        queue_opts = ssn.solver_options.get("queue_opts")
-        use_queue_cap = bool(queue_opts)
-        work_conserving = bool(
-            ssn.solver_options.get("work_conserving", True))
-        if use_queue_cap:
-            self._fill_queue_arrays(arr, queue_opts, ssn)
+            # queue fairness: when proportion is active its session-open attrs
+            # (allocated/request over ALL jobs, incl. running-only queues) feed
+            # the in-kernel water-fill + per-round deserved caps
+            queue_opts = ssn.solver_options.get("queue_opts")
+            use_queue_cap = bool(queue_opts)
+            work_conserving = bool(
+                ssn.solver_options.get("work_conserving", True))
+            if use_queue_cap:
+                self._fill_queue_arrays(arr, queue_opts, ssn)
 
-        # live DRF ordering on device (drf plugin active): the kernel
-        # re-ranks jobs by dominant share every round. Job-order providers
-        # dispatched BEFORE drf in the tiers (priority, gang) compose as a
-        # static MAJOR rank (arr.job_drf_prerank) that live shares only
-        # tie-break — the reference's comparator chain returns on the
-        # first non-zero, so strict priorities dominate and equal
-        # priorities fall through to drf, which the kernel now mirrors
-        # instead of disabling the re-rank outright (a disabled re-rank
-        # froze the snapshot order and could starve later-created jobs
-        # under the default priority-before-drf conf). Falls back to the
-        # static order only when a preceding provider registered no sort
-        # key.
-        drf_opts = ssn.solver_options.get("drf_order")
-        use_drf_order = bool(drf_opts) and not sequential
-        if use_drf_order:
-            providers = [name for _, name, _
-                         in ssn._tier_fns("job_order_fns")]
-            if "drf" not in providers:
-                use_drf_order = False
-            else:
-                pre = providers[:providers.index("drf")]
-                keyfns = [ssn.order_key_fns.get(
-                    "job_order_fns", {}).get(p) for p in pre]
-                if any(kf is None for kf in keyfns):
+            # live DRF ordering on device (drf plugin active): the kernel
+            # re-ranks jobs by dominant share every round. Job-order providers
+            # dispatched BEFORE drf in the tiers (priority, gang) compose as a
+            # static MAJOR rank (arr.job_drf_prerank) that live shares only
+            # tie-break — the reference's comparator chain returns on the
+            # first non-zero, so strict priorities dominate and equal
+            # priorities fall through to drf, which the kernel now mirrors
+            # instead of disabling the re-rank outright (a disabled re-rank
+            # froze the snapshot order and could starve later-created jobs
+            # under the default priority-before-drf conf). Falls back to the
+            # static order only when a preceding provider registered no sort
+            # key.
+            drf_opts = ssn.solver_options.get("drf_order")
+            use_drf_order = bool(drf_opts) and not sequential
+            if use_drf_order:
+                providers = [name for _, name, _
+                             in ssn._tier_fns("job_order_fns")]
+                if "drf" not in providers:
                     use_drf_order = False
-                elif keyfns:
-                    keys = [tuple(kf(job) for kf in keyfns)
-                            for job in arr.jobs_list]
-                    order = sorted(range(len(keys)), key=keys.__getitem__)
-                    # dense rank; EQUAL key tuples share a rank so shares
-                    # can tie-break across them
-                    prev = None
-                    rank_val = -1
-                    for j in order:
-                        if keys[j] != prev:
-                            rank_val += 1
-                            prev = keys[j]
-                        arr.job_drf_prerank[j] = rank_val
-        use_hdrf_order = False
-        if use_drf_order:
-            attrs = drf_opts["job_attrs"]
-            for j, job in enumerate(arr.jobs_list):
-                attr = attrs.get(job.uid)
-                if attr is not None:
-                    arr.job_drf_allocated[j] = \
-                        attr.allocated.to_vector(arr.vocab)
-            arr.drf_total = drf_opts["total"].to_vector(arr.vocab)
-            if drf_opts.get("hierarchy"):
-                # the queue-path tree as arrays (ops.hdrf): their presence
-                # changes the packed layout, so the arena re-ships whole
-                # on the first hdrf session after a plain one
-                from ..ops.hdrf import build_hdrf
-                build_hdrf(arr, ssn.queues, attrs,
-                           drf_opts["total_allocated"])
-                use_hdrf_order = True
+                else:
+                    pre = providers[:providers.index("drf")]
+                    keyfns = [ssn.order_key_fns.get(
+                        "job_order_fns", {}).get(p) for p in pre]
+                    if any(kf is None for kf in keyfns):
+                        use_drf_order = False
+                    elif keyfns:
+                        keys = [tuple(kf(job) for kf in keyfns)
+                                for job in arr.jobs_list]
+                        order = sorted(range(len(keys)), key=keys.__getitem__)
+                        # dense rank; EQUAL key tuples share a rank so shares
+                        # can tie-break across them
+                        prev = None
+                        rank_val = -1
+                        for j in order:
+                            if keys[j] != prev:
+                                rank_val += 1
+                                prev = keys[j]
+                            arr.job_drf_prerank[j] = rank_val
+            use_hdrf_order = False
+            if use_drf_order:
+                attrs = drf_opts["job_attrs"]
+                for j, job in enumerate(arr.jobs_list):
+                    attr = attrs.get(job.uid)
+                    if attr is not None:
+                        arr.job_drf_allocated[j] = \
+                            attr.allocated.to_vector(arr.vocab)
+                arr.drf_total = drf_opts["total"].to_vector(arr.vocab)
+                if drf_opts.get("hierarchy"):
+                    # the queue-path tree as arrays (ops.hdrf): their presence
+                    # changes the packed layout, so the arena re-ships whole
+                    # on the first hdrf session after a plain one
+                    from ..ops.hdrf import build_hdrf
+                    build_hdrf(arr, ssn.queues, attrs,
+                               drf_opts["total_allocated"])
+                    use_hdrf_order = True
 
-        timing["flatten_ms"] = (_time.perf_counter() - t0) * 1e3
-        t0 = _time.perf_counter()
-        params, families = build_score_inputs(ssn, arr)
-        herd = ssn.solver_options.get("herd_mode")
-        if herd is None:
-            herd = "pack" if params["binpack_weight"] > (
-                params["least_req_weight"]
-                + params["balanced_weight"]) else "spread"
+        timing["flatten_ms"] = flattened.ms
+        with tracing.span("vc.solve") as solved:
+            params, families = build_score_inputs(ssn, arr)
+            herd = ssn.solver_options.get("herd_mode")
+            if herd is None:
+                herd = "pack" if params["binpack_weight"] > (
+                    params["least_req_weight"]
+                    + params["balanced_weight"]) else "spread"
 
-        dc = getattr(ssn, "device_cache", None)
-        sidecar = getattr(ssn, "sidecar", None)
-        # which arena a device fault must invalidate (and whose devices
-        # decide whether the host oracle may finish the session): the
-        # packed one, or the sharded one in a sharded session
-        fault_dc = getattr(ssn, "sharded_device_cache", None) if sharded \
-            else dc
-        solve_kw = dict(herd_mode=herd, score_families=families,
+            dc = getattr(ssn, "device_cache", None)
+            sidecar = getattr(ssn, "sidecar", None)
+            # which arena a device fault must invalidate (and whose devices
+            # decide whether the host oracle may finish the session): the
+            # packed one, or the sharded one in a sharded session
+            fault_dc = getattr(ssn, "sharded_device_cache", None) if sharded \
+                else dc
+            solve_kw = dict(herd_mode=herd, score_families=families,
+                            use_queue_cap=use_queue_cap,
+                            use_drf_order=use_drf_order,
+                            use_hdrf_order=use_hdrf_order,
+                            work_conserving=work_conserving)
+            host_params = params
+            via_sidecar = False
+            try:
+                # device-path circuit-breaker scope: anything that throws out
+                # of the dispatch (a CUDA error, OOM, an injected fault) counts
+                # one consecutive device failure; this session then finishes
+                # through the host oracle on a CPU arena and re-raises on a
+                # CUDA one (_device_fault_fallback)
+                faults.fire("solver_dispatch")
+                if sequential:
+                    # the parity oracle: one device step per task, off the
+                    # flatten's host arrays (not the resident arena)
+                    from ..ops.solver import solve_allocate_sequential
+                    dev = getattr(ssn.cache, "device", None)
+                    res = solve_allocate_sequential(
+                        arr.numpy_dict(), params, score_families=families,
                         use_queue_cap=use_queue_cap,
-                        use_drf_order=use_drf_order,
-                        use_hdrf_order=use_hdrf_order,
-                        work_conserving=work_conserving)
-        host_params = params
-        via_sidecar = False
-        try:
-            # device-path circuit-breaker scope: anything that throws out
-            # of the dispatch (a CUDA error, OOM, an injected fault) counts
-            # one consecutive device failure; this session then finishes
-            # through the host oracle on a CPU arena and re-raises on a
-            # CUDA one (_device_fault_fallback)
-            faults.fire("solver_dispatch")
-            if sequential:
-                # the parity oracle: one device step per task, off the
-                # flatten's host arrays (not the resident arena)
-                from ..ops.solver import solve_allocate_sequential
-                dev = getattr(ssn.cache, "device", None)
-                res = solve_allocate_sequential(
-                    arr.numpy_dict(), params, score_families=families,
-                    use_queue_cap=use_queue_cap,
-                    work_conserving=work_conserving, device=dev)
-            elif sharded:
-                # mode: sharded — the node-axis sharded solver over the
-                # sharded device-resident arena (ShardedDeviceCache): node
-                # chunks live per shard, task/job chunks once per device,
-                # and a steady session ships dirty chunks only to the
-                # shards owning them (0 bytes when nothing changed). At D=1
-                # the solve is the packed path's with no collective
-                from ..parallel import solve_allocate_sharded_arena
-                from ..resilience.transient import retry_transient
-                t1 = _time.perf_counter()
-                fbuf, ibuf, layout = arr.packed()
-                timing["pack_ms"] = (_time.perf_counter() - t1) * 1e3
-                sdc = self._sharded_arena(ssn)
-                fault_dc = sdc
-                with sdc.fenced(ssn):
-                    t1 = _time.perf_counter()
-                    bufs = sdc.update(fbuf, ibuf, layout)
-                    params = sdc.params_device(params)
-                    timing["delta_plan_ms"] = \
-                        (_time.perf_counter() - t1) * 1e3
-                    timing["delta_chunks"] = float(sdc.last_shipped_chunks)
-                    timing["arena_mode"] = "sharded"
-                    timing["arena_bytes_shipped"] = \
-                        float(sdc.last_shipped_bytes)
-                    timing["arena_full_ship"] = float(sdc.last_full_ship)
-                    timing["arena_shard_bytes"] = \
-                        [float(b) for b in sdc.last_shard_bytes]
-                    pw = getattr(ssn, "prewarmer", None)
-                    if pw is not None and pw.mesh is None:
-                        # a sharded session pre-warms the sharded solve
-                        pw.mesh = sdc.mesh
-                    # the inputs the bucket prewarmer re-lays into the
-                    # next bucket (ops.precompile)
-                    sdc.last_solve_flags = dict(layout=layout, **solve_kw)
-                    sdc.last_solve_inputs = (fbuf, ibuf, host_params)
-                    # the sharded solve always runs the overflow phases
-                    # under queue caps: it takes no work_conserving flag
-                    kw = {k: v for k, v in solve_kw.items()
-                          if k != "work_conserving"}
-                    t1 = _time.perf_counter()
-                    # one re-send of a transport failure (never of a CUDA
-                    # error, resilience.transient). update() already
-                    # scattered: the retry re-dispatches on the updated
-                    # arena, and a failure that stays reaches the fallback
-                    # below, which invalidates it
-                    res = retry_transient(
-                        lambda: solve_allocate_sharded_arena(
-                            *bufs, params, sdc.mesh, **kw),
-                        what="sharded solver dispatch")
-                    timing["dispatch_ms"] = \
-                        (_time.perf_counter() - t1) * 1e3
-            elif sidecar is not None:
-                # process boundary: ship the packed snapshot to the solver
-                # sidecar (which owns the card) and replay its
-                # assignments; its arena is the server's
-                t1 = _time.perf_counter()
-                fbuf, ibuf, layout = arr.packed()
-                timing["pack_ms"] = (_time.perf_counter() - t1) * 1e3
-                t1 = _time.perf_counter()
-                assigned, kind, info = sidecar.solve(
-                    fbuf, ibuf, layout, params, **solve_kw)
-                timing["dispatch_ms"] = (_time.perf_counter() - t1) * 1e3
-                timing["sidecar_rtt_ms"] = sidecar.last_rtt_ms
-                timing["sidecar_request_bytes"] = \
-                    float(sidecar.last_request_bytes)
-                for k in ("rounds", "shipped_chunks", "launches"):
-                    if k in info:
-                        timing[f"sidecar_{k}"] = float(info[k])
-                # the reply's buffers are read-only: copy into tensors
-                res = SimpleNamespace(assigned=torch.tensor(assigned),
-                                      kind=torch.tensor(kind))
-                via_sidecar = True
-            elif dc is not None:
-                # device-resident buffers: update() scatters the exact
-                # dirty chunks in place and the solve reads views of the
-                # resident buffers, so a session costs one scatter + solve
-                # + one compact readback. A failure after the scatter
-                # reaches _device_fault_fallback, which invalidates the
-                # arena: the next session re-ships it whole
-                from ..ops.solver import solve_allocate_packed2d
-                t1 = _time.perf_counter()
-                fbuf, ibuf, layout = arr.packed()
-                timing["pack_ms"] = (_time.perf_counter() - t1) * 1e3
-                with dc.fenced(ssn):
-                    params = dc.params_device(params)
-                    # the inputs the bucket prewarmer re-lays into the
-                    # next bucket (ops.precompile)
-                    dc.last_solve_flags = dict(layout=layout, **solve_kw)
-                    dc.last_solve_inputs = (fbuf, ibuf, host_params)
-                    t1 = _time.perf_counter()
-                    f2d, i2d = dc.update(fbuf, ibuf, layout)
-                    timing["delta_plan_ms"] = \
-                        (_time.perf_counter() - t1) * 1e3
-                    timing["delta_chunks"] = float(dc.last_shipped_chunks)
-                    timing["arena_mode"] = "packed"
-                    timing["arena_bytes_shipped"] = \
-                        float(dc.last_shipped_bytes)
-                    timing["arena_full_ship"] = float(dc.last_full_ship)
-                    t1 = _time.perf_counter()
-                    res = solve_allocate_packed2d(f2d, i2d, layout, params,
-                                                  **solve_kw)
-                    timing["dispatch_ms"] = \
-                        (_time.perf_counter() - t1) * 1e3
-            else:
-                dev = getattr(ssn.cache, "device", None)
-                res = solve_allocate(arr.device_dict(dev), params,
-                                     device=dev, **solve_kw)
-        except ActionContained:
-            raise  # abandoned: not a device fault
-        except Exception:
-            log.exception("solver dispatch failed; resetting the device "
-                          "cache")
-            self._device_fault_fallback(ssn, fault_dc, timing, breaker)
-            return
-        # ------------------------------------------------------------------
-        # dispatch/collect split: the result's device->host copy starts
-        # now (ops.pipeline.start_readback), so it overlaps the host work
-        # below: replay preparation (the node-name table the Statement
-        # replay indexes), the bucket-prewarm occupancy check
-        # (ops.precompile) and a young-generation gc pass (collection is
-        # disabled during the cycle — see Scheduler.run_once).
-        # pipeline_solver=False keeps the strictly serial order for parity
-        # testing. A sidecar's result is on the host already.
-        # ------------------------------------------------------------------
-        from ..ops.pipeline import start_readback
-        from ..ops.solver import COMPACT_KIND_SHIFT, decode_compact
-        # one int16 readback instead of two int32 ones; above 16k nodes the
-        # node index overflows the int16 packing, and neither the sharded
-        # solve nor the sidecar has a compact form
-        compact_ok = not (sharded or via_sidecar) \
-            and arr.N <= (1 << COMPACT_KIND_SHIFT)
-        result = (res.compact,) if compact_ok else (res.assigned, res.kind)
-        pipelined = bool(getattr(ssn, "pipeline_solver", True))
-        node_names = None
-        statements = None
-        if pipelined:
-            t1 = _time.perf_counter()
-            readback = start_readback(*result)
-            node_names = [n.name for n in arr.nodes_list]
-            # Statement construction is pure (no session registration
-            # until ops are recorded), so the replay's per-job statements
-            # can be built before the results exist
-            statements = [ssn.statement(defer_events=True)
-                          for _ in job_order]
-            self._observe_prewarm(ssn, arr, fault_dc)
-            if result[0].device.type != "cpu":
-                # young-gen GC only when the solve runs on a real
-                # accelerator: there the readback wait is genuine host
-                # idle, while on the CPU host and "device" share cores and
-                # the collection would just lengthen the cycle
-                import gc
-                gc.collect(0)
-            timing["overlap_ms"] = (_time.perf_counter() - t1) * 1e3
-        t1 = _time.perf_counter()
-        try:
+                        work_conserving=work_conserving, device=dev)
+                elif sharded:
+                    # mode: sharded — the node-axis sharded solver over the
+                    # sharded device-resident arena (ShardedDeviceCache): node
+                    # chunks live per shard, task/job chunks once per device,
+                    # and a steady session ships dirty chunks only to the
+                    # shards owning them (0 bytes when nothing changed). At D=1
+                    # the solve is the packed path's with no collective
+                    from ..parallel import solve_allocate_sharded_arena
+                    from ..resilience.transient import retry_transient
+                    with tracing.span("vc.pack") as packed:
+                        fbuf, ibuf, layout = arr.packed()
+                    timing["pack_ms"] = packed.ms
+                    sdc = self._sharded_arena(ssn)
+                    fault_dc = sdc
+                    with sdc.fenced(ssn):
+                        with tracing.span("vc.delta_plan") as planned:
+                            bufs = sdc.update(fbuf, ibuf, layout)
+                            params = sdc.params_device(params)
+                        timing["delta_plan_ms"] = planned.ms
+                        timing["delta_chunks"] = float(sdc.last_shipped_chunks)
+                        timing["arena_mode"] = "sharded"
+                        timing["arena_bytes_shipped"] = \
+                            float(sdc.last_shipped_bytes)
+                        timing["arena_full_ship"] = float(sdc.last_full_ship)
+                        timing["arena_shard_bytes"] = \
+                            [float(b) for b in sdc.last_shard_bytes]
+                        pw = getattr(ssn, "prewarmer", None)
+                        if pw is not None and pw.mesh is None:
+                            # a sharded session pre-warms the sharded solve
+                            pw.mesh = sdc.mesh
+                        # the inputs the bucket prewarmer re-lays into the
+                        # next bucket (ops.precompile)
+                        sdc.last_solve_flags = dict(layout=layout, **solve_kw)
+                        sdc.last_solve_inputs = (fbuf, ibuf, host_params)
+                        # the sharded solve always runs the overflow phases
+                        # under queue caps: it takes no work_conserving flag
+                        kw = {k: v for k, v in solve_kw.items()
+                              if k != "work_conserving"}
+                        # one re-send of a transport failure (never of a
+                        # CUDA error, resilience.transient). update()
+                        # already scattered: the retry re-dispatches on the
+                        # updated arena, and a failure that stays reaches
+                        # the fallback below, which invalidates it
+                        with tracing.span("vc.dispatch") as dispatched:
+                            res = retry_transient(
+                                lambda: solve_allocate_sharded_arena(
+                                    *bufs, params, sdc.mesh, **kw),
+                                what="sharded solver dispatch")
+                        timing["dispatch_ms"] = dispatched.ms
+                elif sidecar is not None:
+                    # process boundary: ship the packed snapshot to the solver
+                    # sidecar (which owns the card) and replay its
+                    # assignments; its arena is the server's
+                    with tracing.span("vc.pack") as packed:
+                        fbuf, ibuf, layout = arr.packed()
+                    timing["pack_ms"] = packed.ms
+                    with tracing.span("vc.dispatch") as dispatched:
+                        assigned, kind, info = sidecar.solve(
+                            fbuf, ibuf, layout, params, **solve_kw)
+                    timing["dispatch_ms"] = dispatched.ms
+                    timing["sidecar_rtt_ms"] = sidecar.last_rtt_ms
+                    timing["sidecar_request_bytes"] = \
+                        float(sidecar.last_request_bytes)
+                    for k in ("rounds", "shipped_chunks", "launches"):
+                        if k in info:
+                            timing[f"sidecar_{k}"] = float(info[k])
+                    # the reply's buffers are read-only: copy into tensors
+                    res = SimpleNamespace(assigned=torch.tensor(assigned),
+                                          kind=torch.tensor(kind))
+                    via_sidecar = True
+                elif dc is not None:
+                    # device-resident buffers: update() scatters the exact
+                    # dirty chunks in place and the solve reads views of the
+                    # resident buffers, so a session costs one scatter + solve
+                    # + one compact readback. A failure after the scatter
+                    # reaches _device_fault_fallback, which invalidates the
+                    # arena: the next session re-ships it whole
+                    from ..ops.solver import solve_allocate_packed2d
+                    with tracing.span("vc.pack") as packed:
+                        fbuf, ibuf, layout = arr.packed()
+                    timing["pack_ms"] = packed.ms
+                    with dc.fenced(ssn):
+                        params = dc.params_device(params)
+                        # the inputs the bucket prewarmer re-lays into the
+                        # next bucket (ops.precompile)
+                        dc.last_solve_flags = dict(layout=layout, **solve_kw)
+                        dc.last_solve_inputs = (fbuf, ibuf, host_params)
+                        with tracing.span("vc.delta_plan") as planned:
+                            f2d, i2d = dc.update(fbuf, ibuf, layout)
+                        timing["delta_plan_ms"] = planned.ms
+                        timing["delta_chunks"] = float(dc.last_shipped_chunks)
+                        timing["arena_mode"] = "packed"
+                        timing["arena_bytes_shipped"] = \
+                            float(dc.last_shipped_bytes)
+                        timing["arena_full_ship"] = float(dc.last_full_ship)
+                        with tracing.span("vc.dispatch") as dispatched:
+                            res = solve_allocate_packed2d(
+                                f2d, i2d, layout, params, **solve_kw)
+                        timing["dispatch_ms"] = dispatched.ms
+                else:
+                    dev = getattr(ssn.cache, "device", None)
+                    res = solve_allocate(arr.device_dict(dev), params,
+                                         device=dev, **solve_kw)
+            except ActionContained:
+                raise  # abandoned: not a device fault
+            except Exception:
+                log.exception("solver dispatch failed; resetting the device "
+                              "cache")
+                self._device_fault_fallback(ssn, fault_dc, timing, breaker)
+                return
+            # --------------------------------------------------------------
+            # dispatch/collect split: the result's device->host copy starts
+            # now (ops.pipeline.start_readback), so it overlaps the host work
+            # below: replay preparation (the node-name table the Statement
+            # replay indexes), the bucket-prewarm occupancy check
+            # (ops.precompile) and a young-generation gc pass (collection is
+            # disabled during the cycle — see Scheduler.run_once).
+            # pipeline_solver=False keeps the strictly serial order for parity
+            # testing. A sidecar's result is on the host already.
+            # --------------------------------------------------------------
+            from ..ops.pipeline import start_readback
+            from ..ops.solver import COMPACT_KIND_SHIFT, decode_compact
+            # one int16 readback instead of two int32 ones; above 16k nodes the
+            # node index overflows the int16 packing, and neither the sharded
+            # solve nor the sidecar has a compact form
+            compact_ok = not (sharded or via_sidecar) \
+                and arr.N <= (1 << COMPACT_KIND_SHIFT)
+            result = (res.compact,) if compact_ok else (res.assigned, res.kind)
+            pipelined = bool(getattr(ssn, "pipeline_solver", True))
+            node_names = None
+            statements = None
+            if pipelined:
+                with tracing.span("vc.overlap") as overlapped:
+                    readback = start_readback(*result)
+                    node_names = [n.name for n in arr.nodes_list]
+                    # Statement construction is pure (no session
+                    # registration until ops are recorded), so the replay's
+                    # per-job statements can be built before the results
+                    # exist
+                    statements = [ssn.statement(defer_events=True)
+                                  for _ in job_order]
+                    self._observe_prewarm(ssn, arr, fault_dc)
+                    if result[0].device.type != "cpu":
+                        # young-gen GC only when the solve runs on a real
+                        # accelerator: there the readback wait is genuine host
+                        # idle, while on the CPU host and "device" share
+                        # cores and the collection would just lengthen the
+                        # cycle
+                        import gc
+                        gc.collect(0)
+                timing["overlap_ms"] = overlapped.ms
+            with tracing.span("vc.readback") as read_back:
+                try:
+                    if not pipelined:
+                        readback = start_readback(*result)
+                    host = readback.wait()
+                    if compact_ok:
+                        assigned, kind = decode_compact(host[0])
+                    else:
+                        assigned, kind = host[0].numpy(), host[1].numpy()
+                    self._check_solver_output(assigned, kind,
+                                              len(tasks_in_order),
+                                              len(arr.nodes_list))
+                except Exception:
+                    # collect failure: the error surfaces HERE, after the
+                    # solve already scattered into the arena — drop the
+                    # arena's device buffers so the next session re-ships in
+                    # full instead of solving on (or scattering into)
+                    # untrusted buffers, and finish THIS session through the
+                    # host oracle so a device fault costs one slow cycle, not
+                    # a scheduling gap
+                    log.exception("solver collect failed; resetting the "
+                                  "device cache")
+                    self._device_fault_fallback(ssn, fault_dc, timing, breaker)
+                    return
+            timing["readback_ms"] = read_back.ms
             if not pipelined:
-                readback = start_readback(*result)
-            host = readback.wait()
-            if compact_ok:
-                assigned, kind = decode_compact(host[0])
-            else:
-                assigned, kind = host[0].numpy(), host[1].numpy()
-            self._check_solver_output(assigned, kind,
-                                      len(tasks_in_order),
-                                      len(arr.nodes_list))
-        except Exception:
-            # collect failure: the error surfaces HERE, after the solve
-            # already scattered into the arena — drop the arena's device
-            # buffers so the next session re-ships in full instead of
-            # solving on (or scattering into) untrusted buffers, and
-            # finish THIS session through the host oracle so a device
-            # fault costs one slow cycle, not a scheduling gap
-            log.exception("solver collect failed; resetting the device "
-                          "cache")
-            self._device_fault_fallback(ssn, fault_dc, timing, breaker)
-            return
-        timing["readback_ms"] = (_time.perf_counter() - t1) * 1e3
-        if not pipelined:
-            # serial mode still pre-warms (after the readback), so turning
-            # the overlap off doesn't also disable the first-use
-            # protection
-            self._observe_prewarm(ssn, arr, fault_dc)
-        if breaker is not None:
-            # a full dispatch+collect round-trip with sane output: the
-            # device path is healthy (closes a half-open breaker)
-            breaker.record_success()
-        timing["solve_ms"] = (_time.perf_counter() - t0) * 1e3
-        t0 = _time.perf_counter()
-
-        # replay through the Statement boundary in job order; events fire
-        # as one batch per committed job and each job's accounting applies
-        # as one bulk Statement wave (identical final handler/session state
-        # — see Statement.allocate_bulk — at a fraction of the per-task
-        # cost; the per-task loop blew the 1 s period on a 10k burst)
-        assigned = assigned.tolist()  # plain ints: no np scalar per lookup
-        kind = kind.tolist()
-        # bulk-commit window: committed statements queue their cache-side
-        # binds + allocate events; ONE flush applies them with full-width
-        # node grouping (per-job commits degrade to 1-task node groups
-        # when gangs spread across nodes — see Statement.commit)
-        from ..framework.statement import begin_bulk_commit, \
-            flush_bulk_commit
-        acc = begin_bulk_commit(ssn)
-        try:
-            self._replay(ssn, arr, job_order, assigned, kind, node_names,
-                         statements)
-        finally:
-            # exception-safe: jobs already committed into the window MUST
-            # still get their cache binds + events even if a later job's
-            # replay blows up (per-statement commits applied them eagerly)
-            flush_bulk_commit(ssn, acc)
-        timing["replay_ms"] = (_time.perf_counter() - t0) * 1e3
+                # serial mode still pre-warms (after the readback), so turning
+                # the overlap off doesn't also disable the first-use
+                # protection
+                self._observe_prewarm(ssn, arr, fault_dc)
+            if breaker is not None:
+                # a full dispatch+collect round-trip with sane output: the
+                # device path is healthy (closes a half-open breaker)
+                breaker.record_success()
+        timing["solve_ms"] = solved.ms
+        with tracing.span("vc.replay") as replayed:
+            # replay through the Statement boundary in job order; events fire
+            # as one batch per committed job and each job's accounting applies
+            # as one bulk Statement wave (identical final handler/session state
+            # — see Statement.allocate_bulk — at a fraction of the per-task
+            # cost; the per-task loop blew the 1 s period on a 10k burst)
+            assigned = assigned.tolist()  # plain ints: no np scalar per lookup
+            kind = kind.tolist()
+            # bulk-commit window: committed statements queue their cache-side
+            # binds + allocate events; ONE flush applies them with full-width
+            # node grouping (per-job commits degrade to 1-task node groups
+            # when gangs spread across nodes — see Statement.commit)
+            from ..framework.statement import begin_bulk_commit, \
+                flush_bulk_commit
+            acc = begin_bulk_commit(ssn)
+            try:
+                self._replay(ssn, arr, job_order, assigned, kind, node_names,
+                             statements)
+            finally:
+                # exception-safe: jobs already committed into the window MUST
+                # still get their cache binds + events even if a later job's
+                # replay blows up (per-statement commits applied them eagerly)
+                flush_bulk_commit(ssn, acc)
+        timing["replay_ms"] = replayed.ms
 
     @staticmethod
     def _sharded_arena(ssn):

@@ -23,7 +23,7 @@ from ..models import (
     PodGroup, PodGroupCondition, PodGroupPhase, Queue, QueueSpec,
 )
 from ..client.store import ClusterStore, ConflictError, NotFoundError
-from ..metrics import metrics
+from ..metrics import metrics, tracing
 
 log = logging.getLogger(__name__)
 
@@ -749,9 +749,12 @@ class SchedulerCache:
         # threads mutate this cache via store listeners (which run under
         # that lock), so holding it here is the SchedulerCache.Mutex of the
         # reference (cache.go:72, Snapshot locks before cloning).
-        with self.cluster.locked():
+        with tracing.traced("vc.open.snapshot") as sp, \
+                self.cluster.locked():
             self._finalize_expired_evictions()
-            return self._snapshot_locked()
+            sn = self._snapshot_locked()
+            sp.set(jobs=len(sn.jobs), nodes=len(sn.nodes))
+            return sn
 
     def _snapshot_locked(self) -> ClusterInfo:
         drop = getattr(self.volume_binder, "drop_assumptions", None)
@@ -1014,11 +1017,18 @@ class SchedulerCache:
         if self._effector_pool is None:
             run()
         else:
+            parent = tracing.current()
+
+            def adopted():
+                with tracing.adopt(parent):
+                    run()
+
             # prune completed futures so long-running schedulers that never
             # drain explicitly don't accumulate them without bound
             self._pending_effects = [f for f in self._pending_effects
                                      if not f.done()]
-            self._pending_effects.append(self._effector_pool.submit(run))
+            self._pending_effects.append(
+                self._effector_pool.submit(adopted))
 
     def wait_for_effects(self) -> None:
         """Drain in-flight async effects (tests / clean shutdown)."""

@@ -18,6 +18,8 @@ import fnmatch
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from ..metrics import tracing
+
 Listener = Callable[[str, Any, Optional[Any]], None]  # (event, obj, old) event in {add, update, delete}
 Interceptor = Callable[[str, str, Any], Any]  # (verb, kind, obj) -> obj (may raise AdmissionError)
 
@@ -207,7 +209,8 @@ class ClusterStore:
     # -- CRUD ---------------------------------------------------------------
 
     def create(self, kind: str, obj, fencing: Optional[dict] = None):
-        with self._lock:
+        with tracing.traced("vc.store.write", kind=kind, event="add"), \
+                self._lock:
             self._check_fence(fencing)
             obj = self._admit("create", kind, obj)
             key = _key(obj)
@@ -222,7 +225,8 @@ class ClusterStore:
             return obj
 
     def update(self, kind: str, obj, fencing: Optional[dict] = None):
-        with self._lock:
+        with tracing.traced("vc.store.write", kind=kind, event="update"), \
+                self._lock:
             self._check_fence(fencing)
             obj = self._admit("update", kind, obj)
             key = _key(obj)
@@ -260,7 +264,8 @@ class ClusterStore:
 
     def delete(self, kind: str, name: str, namespace: Optional[str] = None,
                fencing: Optional[dict] = None):
-        with self._lock:
+        with tracing.traced("vc.store.write", kind=kind, event="delete"), \
+                self._lock:
             self._check_fence(fencing)
             key = f"{namespace}/{name}" if namespace is not None else name
             bucket = self._buckets[kind]

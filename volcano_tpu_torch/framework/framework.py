@@ -7,6 +7,7 @@ import time
 from typing import List
 
 from ..conf import Tier
+from ..metrics import tracing
 from .arguments import Arguments
 from .job_updater import JobUpdater
 from .registry import get_plugin_builder
@@ -29,9 +30,10 @@ def open_session(cache, tiers: List[Tier], configurations=None) -> Session:
                 continue
             plugin = builder(Arguments(opt.arguments))
             ssn.plugins[plugin.name()] = plugin
-            t0 = time.perf_counter()
-            plugin.on_session_open(ssn)
-            _metrics_plugin(plugin.name(), "OnSessionOpen", t0)
+            with tracing.span("vc.open.plugin",
+                              plugin=plugin.name()) as opened:
+                plugin.on_session_open(ssn)
+            _metrics_plugin(plugin.name(), "OnSessionOpen", opened.ms)
 
     # NOTE: the reference's openSession contains a JobValid filter
     # (session.go:121-138), but it runs BEFORE plugins register their
@@ -45,7 +47,8 @@ def close_session(ssn: Session) -> None:
     for name, plugin in ssn.plugins.items():
         t0 = time.perf_counter()
         plugin.on_session_close(ssn)
-        _metrics_plugin(name, "OnSessionClose", t0)
+        _metrics_plugin(name, "OnSessionClose",
+                        (time.perf_counter() - t0) * 1e3)
 
     # decision-trace hook: the recorder reads the session AFTER plugins
     # closed (conditions/fit errors final) and BEFORE teardown — this is
@@ -71,7 +74,7 @@ def close_session(ssn: Session) -> None:
             setattr(ssn, reg, {})
 
 
-def _metrics_plugin(plugin: str, phase: str, t0: float) -> None:
+def _metrics_plugin(plugin: str, phase: str, ms: float) -> None:
     from ..metrics import metrics
     metrics.plugin_scheduling_latency.observe(
-        time.perf_counter() - t0, labels={"plugin": plugin, "OnSession": phase})
+        ms / 1e3, labels={"plugin": plugin, "OnSession": phase})

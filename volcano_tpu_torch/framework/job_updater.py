@@ -12,6 +12,7 @@ from __future__ import annotations
 import logging
 from concurrent.futures import ThreadPoolExecutor
 
+from ..metrics import tracing
 from .session import job_status
 
 log = logging.getLogger(__name__)
@@ -50,8 +51,15 @@ class JobUpdater:
                 self.update_job(job)
             return
         # consume the iterator so worker exceptions surface in the logs
-        # via update_job's own try/except, not silently in futures
-        list(_shared_pool().map(self.update_job, jobs))
+        # via update_job's own try/except, not silently in futures; the
+        # workers' spans name the closing session's as their parent
+        parent = tracing.current()
+
+        def update(job) -> None:
+            with tracing.adopt(parent):
+                self.update_job(job)
+
+        list(_shared_pool().map(update, jobs))
 
     def _dirty(self, job) -> bool:
         """Skip-if-untouched: a READY job whose tasks (since the last

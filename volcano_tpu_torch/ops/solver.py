@@ -37,6 +37,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..metrics import tracing
 from .convert import resolve_device, to_torch_arrays, to_torch_params
 from .fused_choice import (
     NEG, REL_FIT_TOL, _score, fused_choice, fused_setup, pack_pars,
@@ -45,6 +46,14 @@ from .fused_choice import (
 BIG_KEY = 2**31 - 1
 INF = float("inf")
 INT32_MAX = 2**31 - 1
+
+
+def host_flag(flag, site: str) -> bool:
+    """Read a device flag on the host: every device-to-host sync of the
+    round solve goes through here, a ``vc.sync`` span each when traced
+    (``site``: where it waits)."""
+    with tracing.traced("vc.sync", site=site):
+        return bool(flag)
 
 
 class SolveResult(NamedTuple):
@@ -192,7 +201,8 @@ def water_fill_deserved(total, weight, cap, request, thr, max_iters: int):
     while it < max_iters:
         live_w = torch.where(meet, torch.zeros_like(weight), weight)
         tw = torch.sum(live_w)
-        if not bool((tw > 0) & torch.any(remaining >= thr)):
+        if not host_flag((tw > 0) & torch.any(remaining >= thr),
+                         "water_fill"):
             break
         frac = live_w / torch.clamp(tw, min=1e-9)
         old = deserved
@@ -560,6 +570,9 @@ class _Fairness:
         self.J = a["job_min"].shape[0]
         self.use_queue_cap, self.use_drf_order = use_queue_cap, use_drf_order
         self.use_hdrf = use_hdrf
+        #: the fairness order's kind, as its ``vc.round.order`` spans name it
+        self.kind = "hdrf" if use_hdrf else "drf" if use_drf_order \
+            else "queue_cap" if use_queue_cap else "none"
         if use_queue_cap:
             (self.Q, self.deserved, self.task_queue, self.q_perm,
              self.q_seg_start) = queue_cap_state(
@@ -611,19 +624,21 @@ class _Fairness:
         some node can take this round, so that a task no node can take
         does not hold its sibling group's min key or pin its subtree's
         budget."""
-        if self.use_hdrf:
-            r_rank, eligible = self.hdrf_rank_cap(eligible & placeable,
-                                                  st.jobres)
-        elif self.use_drf_order:
-            r_rank = self.drf_rank(st.jobres)
-            eligible = self.drf_cap(eligible, st.jobres)
-        else:
-            r_rank = self.rank
-        if self.use_queue_cap:
-            bound = self.deserved if capped else self.a["queue_capability"]
-            eligible = eligible & self.queue_cap(
-                eligible, st.qalloc, bound,
-                r_rank if self.use_drf_order else None)
+        with tracing.traced("vc.round.order", kind=self.kind):
+            if self.use_hdrf:
+                r_rank, eligible = self.hdrf_rank_cap(eligible & placeable,
+                                                      st.jobres)
+            elif self.use_drf_order:
+                r_rank = self.drf_rank(st.jobres)
+                eligible = self.drf_cap(eligible, st.jobres)
+            else:
+                r_rank = self.rank
+            if self.use_queue_cap:
+                bound = self.deserved if capped \
+                    else self.a["queue_capability"]
+                eligible = eligible & self.queue_cap(
+                    eligible, st.qalloc, bound,
+                    r_rank if self.use_drf_order else None)
         return r_rank, eligible
 
     def account(self, st: _State, tasks, sign: int) -> None:
@@ -705,8 +720,9 @@ class _Fairness:
             excluded = excluded | (solo & revert_job)
             processed = processed | (solo & torch.any(unproc))
             deferred = deferred | (revert_job & (revert_count >= 2))
-            any_more = bool(torch.any(revert_job)
-                            | torch.any(deferred & ~processed & ~excluded))
+            any_more = host_flag(
+                torch.any(revert_job)
+                | torch.any(deferred & ~processed & ~excluded), "gang")
             it += 1
 
 
@@ -794,55 +810,58 @@ def solve_allocate(arrays: Dict[str, object],
                                  & ~st.excluded[tj])
         if gate is not None:
             any_eligible = any_eligible & gate
-        changed = bool(any_eligible)
+        changed = host_flag(any_eligible, "phase")
+        phase = "future" if use_future else "idle"
         while changed and st.rounds < max_rounds:
-            avail = (st.idle + a["node_extra_future"] - st.pipe) \
-                if use_future else st.idle
-            eligible = (a["task_valid"] & (st.assigned < 0)
-                        & ~st.excluded[tj])
-            used_now = a["node_used"] + (a["node_idle"] - st.idle)
-            feas0 = placeable = None
-            if use_hdrf:
-                # placeability prefilter: the dense path reuses this
-                # round's feasibility matrix; the fused path pays one
-                # extra kernel pass
+            with tracing.traced("vc.round", round=st.rounds, phase=phase,
+                                capped=int(capped), T=T, N=N):
+                avail = (st.idle + a["node_extra_future"] - st.pipe) \
+                    if use_future else st.idle
+                eligible = (a["task_valid"] & (st.assigned < 0)
+                            & ~st.excluded[tj])
+                used_now = a["node_used"] + (a["node_idle"] - st.idle)
+                feas0 = placeable = None
+                if use_hdrf:
+                    # placeability prefilter: the dense path reuses this
+                    # round's feasibility matrix; the fused path pays one
+                    # extra kernel pass
+                    if use_fused:
+                        placeable = hdrf_placeable(
+                            init_req, avail, used_now, inv_alloc, node_static,
+                            eligible, st.npods < a["node_max_pods"], sig_i8,
+                            fused_pars, score_families)
+                    else:
+                        feas0 = fits_matrix(init_req, avail, thr,
+                                            scalar_mask) & sig_feas
+                        placeable = torch.any(
+                            feas0 & (st.npods < a["node_max_pods"])[None, :],
+                            dim=1)
+                r_rank, eligible = fair.order(st, eligible, capped, placeable)
                 if use_fused:
-                    placeable = hdrf_placeable(
-                        init_req, avail, used_now, inv_alloc, node_static,
-                        eligible, st.npods < a["node_max_pods"], sig_i8,
-                        fused_pars, score_families)
+                    new_assign, debit, pod_inc = _admission_round_fused(
+                        eligible, a, avail, used_now, sig_feas, sig_i8,
+                        inv_alloc, node_static, fused_pars, task_req,
+                        r_rank, thr, scalar_mask, st.npods, herd_mode,
+                        score_families)
                 else:
-                    feas0 = fits_matrix(init_req, avail, thr,
-                                        scalar_mask) & sig_feas
-                    placeable = torch.any(
-                        feas0 & (st.npods < a["node_max_pods"])[None, :],
-                        dim=1)
-            r_rank, eligible = fair.order(st, eligible, capped, placeable)
-            if use_fused:
-                new_assign, debit, pod_inc = _admission_round_fused(
-                    eligible, a, avail, used_now, sig_feas, sig_i8,
-                    inv_alloc, node_static, fused_pars, task_req,
-                    r_rank, thr, scalar_mask, st.npods, herd_mode,
-                    score_families)
-            else:
-                feas = feas0 if feas0 is not None else (
-                    fits_matrix(init_req, avail, thr, scalar_mask)
-                    & sig_feas)
-                score = score_matrix(init_req, avail, used_now,
-                                     a["node_alloc"], params,
-                                     score_families)
-                new_assign, debit, pod_inc = _admission_round(
-                    eligible, feas, score, init_req, task_req, avail,
-                    r_rank, thr, scalar_mask, st.npods,
-                    a["node_max_pods"], per_node_cap, herd_mode)
-            got = fair.record(st, new_assign, use_future)
-            if use_future:
-                st.pipe = st.pipe + debit
-            else:
-                st.idle = st.idle - debit
-                st.npods = st.npods + pod_inc
-            st.rounds += 1
-            changed = bool(torch.any(got))
+                    feas = feas0 if feas0 is not None else (
+                        fits_matrix(init_req, avail, thr, scalar_mask)
+                        & sig_feas)
+                    score = score_matrix(init_req, avail, used_now,
+                                         a["node_alloc"], params,
+                                         score_families)
+                    new_assign, debit, pod_inc = _admission_round(
+                        eligible, feas, score, init_req, task_req, avail,
+                        r_rank, thr, scalar_mask, st.npods,
+                        a["node_max_pods"], per_node_cap, herd_mode)
+                got = fair.record(st, new_assign, use_future)
+                if use_future:
+                    st.pipe = st.pipe + debit
+                else:
+                    st.idle = st.idle - debit
+                    st.npods = st.npods + pod_inc
+                st.rounds += 1
+                changed = host_flag(torch.any(got), "round")
 
     # loop-invariant: pipeline phases only matter when some node's
     # FutureIdle can exceed its Idle

@@ -37,12 +37,13 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+from ..metrics import tracing
 from ..ops.convert import to_torch_arrays, to_torch_params
 from ..ops.fused_choice import NEG, fused_choice, fused_setup
 from ..ops.solver import (
     SolveResult, _admit_prefix, _Fairness, _herd_mean, _herd_slots,
     _herd_target, _segment_sum, _State, _unpack, fits_matrix, le_fits,
-    score_matrix,
+    host_flag, score_matrix,
 )
 from . import mesh as _mesh
 from .mesh import Mesh
@@ -217,55 +218,59 @@ def _solve(reps: Sequence[Dict[str, torch.Tensor]],
 
     def phase_rounds(excluded, use_future: bool, capped: bool = True):
         changed = True
+        phase = "future" if use_future else "idle"
         while changed and st.rounds < max_rounds:
-            avails = [(st.idle[d] + s.nd["node_extra_future"] - st.pipe[d])
-                      if use_future else st.idle[d]
-                      for d, s in enumerate(shards)]
-            eligible = (a["task_valid"] & (st.assigned < 0)
-                        & ~excluded[tj])
-            feas0s = [None] * D
-            placeable = None
-            if use_hdrf_order:
-                # placeability prefilter over every shard's nodes. The
-                # dense path hands its [T, N/D] matrix to choose(); the
-                # fused path pays one more kernel pass
-                hits = []
-                for d, s in enumerate(shards):
-                    pods_ok = st.npods[d] < s.nd["node_max_pods"]
-                    el = _on(eligible, s.dev)
-                    if s.fused:
-                        best_s, _, _ = fused_choice(
-                            s.init_req, avails[d].contiguous(),
-                            used_now(s, st.idle[d]).contiguous(),
-                            s.inv_alloc, s.node_static,
-                            el.to(torch.float32), pods_ok.to(torch.float32),
-                            s.sig_i8, s.pars, score_families,
-                            prefilter=True)
-                        hit = best_s > NEG * 0.5
+            with tracing.traced("vc.round", round=st.rounds, phase=phase,
+                                capped=int(capped), T=T, N=n_loc * D):
+                avails = [(st.idle[d] + s.nd["node_extra_future"] - st.pipe[d])
+                          if use_future else st.idle[d]
+                          for d, s in enumerate(shards)]
+                eligible = (a["task_valid"] & (st.assigned < 0)
+                            & ~excluded[tj])
+                feas0s = [None] * D
+                placeable = None
+                if use_hdrf_order:
+                    # placeability prefilter over every shard's nodes. The
+                    # dense path hands its [T, N/D] matrix to choose(); the
+                    # fused path pays one more kernel pass
+                    hits = []
+                    for d, s in enumerate(shards):
+                        pods_ok = st.npods[d] < s.nd["node_max_pods"]
+                        el = _on(eligible, s.dev)
+                        if s.fused:
+                            best_s, _, _ = fused_choice(
+                                s.init_req, avails[d].contiguous(),
+                                used_now(s, st.idle[d]).contiguous(),
+                                s.inv_alloc, s.node_static,
+                                el.to(torch.float32),
+                                pods_ok.to(torch.float32),
+                                s.sig_i8, s.pars, score_families,
+                                prefilter=True)
+                            hit = best_s > NEG * 0.5
+                        else:
+                            feas0s[d] = (fits_matrix(s.init_req, avails[d],
+                                                     s.r["thresholds"],
+                                                     s.r["scalar_dim_mask"])
+                                         & s.sig_feas & pods_ok[None, :])
+                            hit = torch.any(feas0s[d], dim=1)
+                        hits.append(hit.to(torch.int32))
+                    placeable = (hits[0] if D1 else _mesh.psum(hits, dev0)) > 0
+                r_rank, eligible = fair.order(st, eligible, capped, placeable)
+                choice = choose(eligible, avails, st.idle, st.npods, feas0s)
+                outs = [admit_local(s, choice, avails[d], st.npods[d],
+                                    _on(r_rank, s.dev))
+                        for d, s in enumerate(shards)]
+                # each task is admitted by at most one shard
+                got = fair.record(st, outs[0][0] if D1 else _mesh.pmax(
+                    [o[0] for o in outs], dev0), use_future)
+                for d, (_, debit, pod_inc) in enumerate(outs):
+                    if use_future:
+                        st.pipe[d] = st.pipe[d] + debit
                     else:
-                        feas0s[d] = (fits_matrix(s.init_req, avails[d],
-                                                 s.r["thresholds"],
-                                                 s.r["scalar_dim_mask"])
-                                     & s.sig_feas & pods_ok[None, :])
-                        hit = torch.any(feas0s[d], dim=1)
-                    hits.append(hit.to(torch.int32))
-                placeable = (hits[0] if D1 else _mesh.psum(hits, dev0)) > 0
-            r_rank, eligible = fair.order(st, eligible, capped, placeable)
-            choice = choose(eligible, avails, st.idle, st.npods, feas0s)
-            outs = [admit_local(s, choice, avails[d], st.npods[d],
-                                _on(r_rank, s.dev))
-                    for d, s in enumerate(shards)]
-            # each task is admitted by at most one shard
-            got = fair.record(st, outs[0][0] if D1 else _mesh.pmax(
-                [o[0] for o in outs], dev0), use_future)
-            for d, (_, debit, pod_inc) in enumerate(outs):
-                if use_future:
-                    st.pipe[d] = st.pipe[d] + debit
-                else:
-                    st.idle[d] = st.idle[d] - debit
-                    st.npods[d] = st.npods[d] + pod_inc
-            st.rounds += 1
-            changed = bool(torch.any(got))
+                        st.idle[d] = st.idle[d] - debit
+                        st.npods[d] = st.npods[d] + pod_inc
+                st.rounds += 1
+                changed = host_flag(torch.any(got), "round")
 
     def run_phases(excluded) -> None:
         # every phase runs at least one round, as in the JAX package's

@@ -17,7 +17,7 @@ from . import plugins as _plugins  # noqa: F401  (registers plugins)
 from .cache import SchedulerCache
 from .conf import DEFAULT_SCHEDULER_CONF, load_scheduler_conf
 from .framework import close_session, get_action, open_session
-from .metrics import metrics
+from .metrics import metrics, tracing
 from .resilience import ActionTimeout
 
 log = logging.getLogger(__name__)
@@ -211,68 +211,75 @@ class Scheduler:
         process."""
         import gc
         self._gc_cycles = getattr(self, "_gc_cycles", 0) + 1
-        if self._gc_cycles % 20 == 0:
-            gc.collect()
-        else:
-            gc.collect(1)
+        full = self._gc_cycles % 20 == 0
+        with tracing.traced("vc.gc", full=int(full)):
+            if full:
+                gc.collect()
+            else:
+                gc.collect(1)
 
     def _run_once_inner(self) -> None:
-        t0 = time.perf_counter()
-        self.load_conf()
-        ssn = open_session(self.cache, self.tiers, self.configurations)
-        ssn.node_sampler = self.node_sampler
+        # the phase keys of last_cycle_timing are the durations of the
+        # cycle's spans (metrics.tracing), recorded or not
         timing = {}
-        t_open = time.perf_counter()
-        timing["open_ms"] = (t_open - t0) * 1e3
-        try:
-            for epoch, action in enumerate(self.actions):
-                ta = time.perf_counter()
-                name = action.name()
-                ssn._action_epoch = epoch
-                try:
-                    self._execute_action(ssn, action)
-                except ActionTimeout:
-                    # deadline breach: the watchdog already dumped stacks;
-                    # roll the abandoned action's statements back, fence
-                    # its epoch so a zombie commit becomes a discard, and
-                    # run the REMAINING actions of this cycle
-                    ssn._contained_epochs.add(epoch)
-                    n = ssn.discard_open_statements()
-                    timing[f"{name}_timeout"] = 1.0
-                    metrics.action_timeouts_total.inc(
-                        labels={"action": name})
-                    log.error("action %s exceeded its deadline; contained "
-                              "(%d open statement(s) discarded), running "
-                              "the remaining actions", name, n)
-                except Exception:
-                    # a throwing action is contained the same way: its
-                    # uncommitted statements discard and the cycle goes on
-                    # (the reference contains per-cycle errors identically
-                    # — one bad action must not starve backfill forever)
-                    n = ssn.discard_open_statements()
-                    timing[f"{name}_error"] = 1.0
-                    metrics.action_failures_total.inc(
-                        labels={"action": name})
-                    log.exception("action %s failed; contained (%d open "
-                                  "statement(s) discarded), running the "
-                                  "remaining actions", name, n)
-                dt = time.perf_counter() - ta
-                timing[f"{name}_ms"] = dt * 1e3
-                metrics.action_scheduling_latency.observe(
-                    dt * 1e6, labels={"action": name})
-            # the allocate action's internal decomposition when it ran in
-            # solver mode (flatten/solve/replay)
-            for k, v in (ssn.solver_options.get("timing") or {}).items():
-                timing[k] = v
-        finally:
-            tc = time.perf_counter()
-            close_session(ssn)
-            timing["close_ms"] = (time.perf_counter() - tc) * 1e3
-        total = (time.perf_counter() - t0) * 1e3
-        timing["total_ms"] = total
+        with tracing.span("vc.cycle") as cycle:
+            with tracing.span("vc.open") as opened:
+                self.load_conf()
+                ssn = open_session(self.cache, self.tiers,
+                                   self.configurations)
+                ssn.node_sampler = self.node_sampler
+            timing["open_ms"] = opened.ms
+            try:
+                for epoch, action in enumerate(self.actions):
+                    name = action.name()
+                    with tracing.span("vc.action", name=name) as acted:
+                        ssn._action_epoch = epoch
+                        try:
+                            self._execute_action(ssn, action)
+                        except ActionTimeout:
+                            # deadline breach: the watchdog already dumped
+                            # stacks; roll the abandoned action's
+                            # statements back, fence its epoch so a zombie
+                            # commit becomes a discard, and run the
+                            # REMAINING actions of this cycle
+                            ssn._contained_epochs.add(epoch)
+                            n = ssn.discard_open_statements()
+                            timing[f"{name}_timeout"] = 1.0
+                            metrics.action_timeouts_total.inc(
+                                labels={"action": name})
+                            log.error("action %s exceeded its deadline; "
+                                      "contained (%d open statement(s) "
+                                      "discarded), running the remaining "
+                                      "actions", name, n)
+                        except Exception:
+                            # a throwing action is contained the same way:
+                            # its uncommitted statements discard and the
+                            # cycle goes on (the reference contains
+                            # per-cycle errors identically — one bad action
+                            # must not starve backfill forever)
+                            n = ssn.discard_open_statements()
+                            timing[f"{name}_error"] = 1.0
+                            metrics.action_failures_total.inc(
+                                labels={"action": name})
+                            log.exception("action %s failed; contained "
+                                          "(%d open statement(s) "
+                                          "discarded), running the "
+                                          "remaining actions", name, n)
+                    timing[f"{name}_ms"] = acted.ms
+                    metrics.action_scheduling_latency.observe(
+                        acted.ms * 1e3, labels={"action": name})
+                # the allocate action's internal decomposition when it ran
+                # in solver mode (flatten/solve/replay)
+                for k, v in (ssn.solver_options.get("timing") or {}).items():
+                    timing[k] = v
+            finally:
+                with tracing.span("vc.close") as closed:
+                    close_session(ssn)
+                timing["close_ms"] = closed.ms
+        timing["total_ms"] = cycle.ms
         self._export_pipeline_metrics(timing)
         self.last_cycle_timing = timing
-        metrics.e2e_scheduling_latency.observe(total)
+        metrics.e2e_scheduling_latency.observe(cycle.ms)
 
     def _execute_action(self, ssn, action) -> None:
         """Run one action, inline or under the deadline watchdog; the
@@ -290,9 +297,12 @@ class Scheduler:
         if self._watchdog is None:
             run()
         else:
+            parent = tracing.current()
+
             def pinned():
-                ssn.pin_action_epoch(epoch)
-                run()
+                with tracing.adopt(parent):
+                    ssn.pin_action_epoch(epoch)
+                    run()
 
             self._watchdog.run(action.name(), pinned)
 
