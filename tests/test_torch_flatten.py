@@ -7,8 +7,6 @@ capabilities. Tolerance: exact (both are the same numpy code)."""
 
 from __future__ import annotations
 
-from types import SimpleNamespace
-
 import numpy as np
 import pytest
 
@@ -23,107 +21,9 @@ import volcano_tpu_torch.api as t_api
 import volcano_tpu_torch.models as t_models
 import volcano_tpu_torch.ops as t_ops
 
+from torch_helpers import build_cluster, cluster_spec  # noqa: F401
+
 PACKAGES = {"jax": (j_api, j_models, j_ops), "torch": (t_api, t_models, t_ops)}
-
-ZONES = ("a", "b", "c")
-
-
-def cluster_spec(seed: int, n_nodes: int = 24, n_jobs: int = 12,
-                 tasks_per_job: int = 4, n_queues: int = 3,
-                 constraints: bool = True, releasing: bool = True,
-                 gpu: bool = False):
-    """A seeded cluster as plain data (numpy rng), buildable by either
-    package: node sizes, labels, taints and resident pods; jobs with gang
-    sizes, queues, per-task requests and placement constraints."""
-    rng = np.random.default_rng(seed)
-    nodes = []
-    for i in range(n_nodes):
-        rl = {"cpu": str(int(rng.integers(2, 9))),
-              "memory": f"{int(rng.integers(4, 17))}Gi", "pods": 110}
-        if gpu and i % 2 == 0:
-            rl["nvidia.com/gpu"] = 4
-        taints = []
-        if constraints and i % 5 == 0:
-            taints = [{"key": "dedicated", "value": "batch",
-                       "effect": "NoSchedule"}]
-        resident = []
-        if releasing and i % 4 == 1:
-            resident.append(("Running", {"cpu": "1", "memory": "1Gi"}))
-        if releasing and i % 6 == 2:
-            resident.append(("Releasing", {"cpu": "1", "memory": "2Gi"}))
-        nodes.append({"name": f"n{i}", "alloc": rl,
-                      "labels": {"zone": ZONES[i % 3]}, "taints": taints,
-                      "resident": resident})
-    jobs = []
-    for k in range(n_jobs):
-        tasks = []
-        for _ in range(tasks_per_job):
-            req = {"cpu": str(int(rng.integers(1, 4))),
-                   "memory": f"{int(rng.integers(1, 5))}Gi"}
-            if gpu and k % 3 == 0:
-                req["nvidia.com/gpu"] = 1
-            tasks.append(req)
-        kind = k % 5 if constraints else 0
-        jobs.append({"name": f"j{k}", "queue": f"q{k % n_queues}",
-                     "min": int(rng.integers(1, tasks_per_job + 1)),
-                     "reqs": tasks, "constraint": kind})
-    queues = [{"name": f"q{i}", "weight": i + 1,
-               "capability": {"cpu": "40"} if i == n_queues - 1 else None}
-              for i in range(n_queues)]
-    return {"nodes": nodes, "jobs": jobs, "queues": queues}
-
-
-def build_cluster(pkg: str, spec):
-    """(jobs, nodes, tasks_in_order, queues) of one package from a spec."""
-    api, models, _ = PACKAGES[pkg]
-    ann_key = api.POD_GROUP_ANNOTATION
-    nodes = {}
-    for n in spec["nodes"]:
-        ni = api.NodeInfo(models.Node(
-            name=n["name"], labels=dict(n["labels"]),
-            allocatable=dict(n["alloc"]), capacity=dict(n["alloc"]),
-            taints=[dict(t) for t in n["taints"]]))
-        for r, (phase, req) in enumerate(n["resident"]):
-            pod = models.Pod(name=f"{n['name']}-res{r}", namespace="sys",
-                             node_name=n["name"], phase="Running",
-                             containers=[{"requests": dict(req)}])
-            t = api.TaskInfo(pod)
-            t.status = (api.TaskStatus.RELEASING if phase == "Releasing"
-                        else api.TaskStatus.RUNNING)
-            ni.add_task(t)
-        nodes[n["name"]] = ni
-    jobs, tasks = {}, []
-    for j in spec["jobs"]:
-        pg = models.PodGroup(name=j["name"], namespace="ns",
-                             spec=models.PodGroupSpec(min_member=j["min"],
-                                                      queue=j["queue"]))
-        job = api.JobInfo(f"ns/{j['name']}", pg)
-        for i, req in enumerate(j["reqs"]):
-            kw = {}
-            c = j["constraint"]
-            if c == 1:
-                kw["node_selector"] = {"zone": "b"}
-            elif c == 2:
-                kw["tolerations"] = [{"key": "dedicated", "operator": "Equal",
-                                      "value": "batch",
-                                      "effect": "NoSchedule"}]
-            elif c == 3:
-                kw["affinity"] = {"nodeAffinity": {
-                    "requiredDuringSchedulingIgnoredDuringExecution": {
-                        "nodeSelectorTerms": [{"matchExpressions": [
-                            {"key": "zone", "operator": "In",
-                             "values": ["a", "c"]}]}]}}}
-            pod = models.Pod(name=f"{j['name']}-{i}", namespace="ns",
-                             annotations={ann_key: j["name"]},
-                             containers=[{"requests": dict(req)}], **kw)
-            t = api.TaskInfo(pod)
-            job.add_task_info(t)
-            tasks.append(t)
-        jobs[job.uid] = job
-    queues = {q["name"]: SimpleNamespace(weight=q["weight"],
-                                         capability=q["capability"])
-              for q in spec["queues"]}
-    return jobs, nodes, tasks, queues
 
 
 def flatten(pkg: str, spec, cache=None):

@@ -35,54 +35,15 @@ from volcano_tpu.ops import solve_allocate as j_solve
 from volcano_tpu_torch.ops import hdrf as t_hdrf
 from volcano_tpu_torch.ops import solve_allocate as t_solve
 
-from test_torch_flatten import PACKAGES, build_cluster, cluster_spec
 from test_torch_solver import assert_identical, params_dict
 from torch_helpers import (
-    SeededCluster, build_node, build_pod, build_pod_group, build_queue,
-    hierarchy_annotations, pkg_mod,
+    EXAMPLE, RAGGED, RESCALING, SeededCluster, build_node, build_pod,
+    build_pod_group, build_queue, hdrf_flatten, hierarchy_annotations,
+    pkg_mod,
 )
-
-#: the rescaling tree of tests/test_fairshare.py TestHDRF (uniform depth
-#: under eng, sci one level up) and the ragged trees of its
-#: TestHDRFRaggedParity
-RESCALING = [("root/sci", "100/50"), ("root/eng/dev", "100/50/50"),
-             ("root/eng/prod", "100/50/50")]
-RAGGED = [("root/a", "100/3"), ("root/a/b", "100/3/2"),
-          ("root/a/c", "100/3/1"), ("root/d", "100/2"),
-          ("root/d/e/f", "100/2/4/1"), ("root/g", "100/1"),
-          ("root/g/h", "100/1/2")]
-#: example/hierarchical-jobs.yaml's three leaf queues
-EXAMPLE = [("root/eng/prod", "1/2/8"), ("root/eng/dev", "1/2/2"),
-           ("root/sci", "1/2")]
-
 
 def _jnp(d):
     return {k: jnp.asarray(v) for k, v in d.items()}
-
-
-def hdrf_flatten(pkg: str, seed: int, tree, n_queues: int = 4, **spec_kw):
-    """A seeded flatten of package ``pkg`` whose queues carry the drf
-    hierarchy (``tree`` cycled over the queues), with seeded integral drf
-    allocations, a drf total and the hdrf tree built."""
-    api, _, ops = PACKAGES[pkg]
-    spec = cluster_spec(seed, n_queues=n_queues, **spec_kw)
-    jobs, nodes, tasks, queues = build_cluster(pkg, spec)
-    for i, q in enumerate(sorted(queues)):
-        queues[q].hierarchy, queues[q].weights = tree[i % len(tree)]
-    arr = ops.flatten_snapshot(jobs, nodes, tasks, queues=queues)
-    rng = np.random.default_rng(seed + 1000)
-    nj = len(arr.jobs_list)
-    arr.drf_total = (arr.node_alloc * arr.node_valid[:, None]).sum(
-        axis=0).astype(np.float32)
-    # integral allocations, so saturation compares exactly
-    arr.job_drf_allocated[:nj, 0] = 1000.0 * rng.integers(0, 4, nj)
-    arr.job_drf_allocated[:nj, 1] = float(1 << 30) * rng.integers(0, 4, nj)
-    arr.job_drf_prerank[:nj] = rng.integers(0, 2, nj)
-    total = api.Resource(
-        milli_cpu=float(arr.job_drf_allocated[:, 0].sum()),
-        memory=float(arr.job_drf_allocated[:, 1].sum()))
-    (j_hdrf if pkg == "jax" else t_hdrf).build_hdrf(arr, queues, {}, total)
-    return arr
 
 
 HDRF_KEYS = ("hdrf_parent", "hdrf_weight", "hdrf_depth", "hdrf_is_leaf",

@@ -8,9 +8,13 @@
   phase key equals its span's duration exactly; the ``vc.round`` spans
   count the solve's rounds; the exported spans sit on their
   ``user_annotation`` events in the torch trace.
+- Every ``vc.round.order`` span of a CPU solve ran eagerly (``graph``
+  "eager": the hdrf rank and cap's CUDA graph is for the card).
 - The benchmark's span readers (``benchmark/metrics``, ``benchmark/spans.py``)
   read positive numbers from spans recorded here, and nothing where the
-  port has no recorder.
+  port has no recorder; ``order_graph_share.hdrf`` reads 0.0 from the CPU's
+  hdrf spans, the replayed share from spans marked as replayed, and
+  nothing from order spans without the ``graph`` attribute.
 """
 
 from __future__ import annotations
@@ -316,7 +320,50 @@ def test_span_readers_read_positive_numbers(kind, name, traces,
         assert got == statistics.median(traced["rounds"])
 
 
-@pytest.mark.parametrize("name", STEADY_READERS + HDRF_READERS)
+def test_order_spans_run_eagerly_on_the_cpu(traced):
+    """The rank and cap's graph is for the card: every order span of a
+    CPU solve, drf or hdrf, ran eagerly."""
+    orders = [s for s in traced["spans"] if s.name == "vc.round.order"]
+    assert orders and all(s.attrs["graph"] == "eager" for s in orders)
+
+
+def _as_replayed(spans):
+    """The spans with every ``vc.round.order`` of a cycle but its first
+    two marked "replay" (a solve on the card); the median share of
+    replays a cycle that the reader should then read."""
+    seen, out, shares = {}, [], {}
+    for s in sorted(spans, key=lambda s: s.start_ns):
+        if s.name == "vc.round.order":
+            k = seen[s.cycle] = seen.get(s.cycle, 0) + 1
+            s = s._replace(attrs=dict(s.attrs,
+                                      graph="replay" if k > 2 else "eager"))
+            shares.setdefault(s.cycle, []).append(k > 2)
+        out.append(s)
+    return out, statistics.median(sum(v) / len(v) for v in shares.values())
+
+
+@pytest.mark.parametrize("form", ["cpu", "replayed", "no_attribute"])
+def test_order_graph_share_reads_the_replayed_share(form, traces,
+                                                    repo_on_path,
+                                                    monkeypatch):
+    """0.0 on the CPU's eager hdrf trace; the median share of replays
+    where rounds replayed; nothing where the order spans carry no
+    ``graph`` attribute, as a program without the graph records them."""
+    spans = list(traces("hdrf")["spans"])
+    want = 0.0
+    if form == "replayed":
+        spans, want = _as_replayed(spans)
+        assert 0.0 < want < 1.0
+    elif form == "no_attribute":
+        spans = [s._replace(attrs={k: v for k, v in s.attrs.items()
+                                   if k != "graph"}) for s in spans]
+        want = None
+    monkeypatch.setattr(tracing, "spans", lambda: spans)
+    assert _reader("order_graph_share.hdrf").read(None) == want
+
+
+@pytest.mark.parametrize("name", STEADY_READERS + HDRF_READERS
+                         + ("order_graph_share.hdrf",))
 def test_span_readers_read_nothing_without_the_recorder(name, repo_on_path,
                                                         monkeypatch):
     monkeypatch.setitem(sys.modules, "volcano_tpu_torch.metrics.tracing",

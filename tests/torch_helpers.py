@@ -3,6 +3,12 @@ for the port, the JAX package's for the reference) plus a seeded
 churning cluster that drives either package's Scheduler through the same
 cycles.
 
+``cluster_spec(seed, ...)`` is a seeded cluster as plain data and
+``build_cluster(pkg, spec)`` its jobs, nodes, tasks and queues in either
+package; ``hdrf_flatten(pkg, seed, tree, ...)`` flattens one whose queues
+carry a drf hierarchy (``RESCALING``, ``RAGGED``, ``EXAMPLE``), with the
+hdrf tree built. None of them needs JAX for the port.
+
 ``SeededCluster(pkg, spec_seed, ...)`` holds one ClusterStore, a
 SchedulerCache on FakeBinder/FakeEvictor and a Scheduler of package
 ``pkg`` ("jax" or "torch"); ``cycle()`` submits the next seeded wave of
@@ -15,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+from types import SimpleNamespace
 from typing import Dict, Optional
 
 import numpy as np
@@ -37,6 +44,146 @@ tiers:
 
 def pkg_mod(pkg: str, sub: str):
     return importlib.import_module(f"{PACKAGES[pkg]}.{sub}")
+
+
+ZONES = ("a", "b", "c")
+
+
+def cluster_spec(seed: int, n_nodes: int = 24, n_jobs: int = 12,
+                 tasks_per_job: int = 4, n_queues: int = 3,
+                 constraints: bool = True, releasing: bool = True,
+                 gpu: bool = False):
+    """A seeded cluster as plain data (numpy rng), buildable by either
+    package: node sizes, labels, taints and resident pods; jobs with gang
+    sizes, queues, per-task requests and placement constraints."""
+    rng = np.random.default_rng(seed)
+    nodes = []
+    for i in range(n_nodes):
+        rl = {"cpu": str(int(rng.integers(2, 9))),
+              "memory": f"{int(rng.integers(4, 17))}Gi", "pods": 110}
+        if gpu and i % 2 == 0:
+            rl["nvidia.com/gpu"] = 4
+        taints = []
+        if constraints and i % 5 == 0:
+            taints = [{"key": "dedicated", "value": "batch",
+                       "effect": "NoSchedule"}]
+        resident = []
+        if releasing and i % 4 == 1:
+            resident.append(("Running", {"cpu": "1", "memory": "1Gi"}))
+        if releasing and i % 6 == 2:
+            resident.append(("Releasing", {"cpu": "1", "memory": "2Gi"}))
+        nodes.append({"name": f"n{i}", "alloc": rl,
+                      "labels": {"zone": ZONES[i % 3]}, "taints": taints,
+                      "resident": resident})
+    jobs = []
+    for k in range(n_jobs):
+        tasks = []
+        for _ in range(tasks_per_job):
+            req = {"cpu": str(int(rng.integers(1, 4))),
+                   "memory": f"{int(rng.integers(1, 5))}Gi"}
+            if gpu and k % 3 == 0:
+                req["nvidia.com/gpu"] = 1
+            tasks.append(req)
+        kind = k % 5 if constraints else 0
+        jobs.append({"name": f"j{k}", "queue": f"q{k % n_queues}",
+                     "min": int(rng.integers(1, tasks_per_job + 1)),
+                     "reqs": tasks, "constraint": kind})
+    queues = [{"name": f"q{i}", "weight": i + 1,
+               "capability": {"cpu": "40"} if i == n_queues - 1 else None}
+              for i in range(n_queues)]
+    return {"nodes": nodes, "jobs": jobs, "queues": queues}
+
+
+def build_cluster(pkg: str, spec):
+    """(jobs, nodes, tasks_in_order, queues) of one package from a spec."""
+    api, models = pkg_mod(pkg, "api"), pkg_mod(pkg, "models")
+    ann_key = api.POD_GROUP_ANNOTATION
+    nodes = {}
+    for n in spec["nodes"]:
+        ni = api.NodeInfo(models.Node(
+            name=n["name"], labels=dict(n["labels"]),
+            allocatable=dict(n["alloc"]), capacity=dict(n["alloc"]),
+            taints=[dict(t) for t in n["taints"]]))
+        for r, (phase, req) in enumerate(n["resident"]):
+            pod = models.Pod(name=f"{n['name']}-res{r}", namespace="sys",
+                             node_name=n["name"], phase="Running",
+                             containers=[{"requests": dict(req)}])
+            t = api.TaskInfo(pod)
+            t.status = (api.TaskStatus.RELEASING if phase == "Releasing"
+                        else api.TaskStatus.RUNNING)
+            ni.add_task(t)
+        nodes[n["name"]] = ni
+    jobs, tasks = {}, []
+    for j in spec["jobs"]:
+        pg = models.PodGroup(name=j["name"], namespace="ns",
+                             spec=models.PodGroupSpec(min_member=j["min"],
+                                                      queue=j["queue"]))
+        job = api.JobInfo(f"ns/{j['name']}", pg)
+        for i, req in enumerate(j["reqs"]):
+            kw = {}
+            c = j["constraint"]
+            if c == 1:
+                kw["node_selector"] = {"zone": "b"}
+            elif c == 2:
+                kw["tolerations"] = [{"key": "dedicated", "operator": "Equal",
+                                      "value": "batch",
+                                      "effect": "NoSchedule"}]
+            elif c == 3:
+                kw["affinity"] = {"nodeAffinity": {
+                    "requiredDuringSchedulingIgnoredDuringExecution": {
+                        "nodeSelectorTerms": [{"matchExpressions": [
+                            {"key": "zone", "operator": "In",
+                             "values": ["a", "c"]}]}]}}}
+            pod = models.Pod(name=f"{j['name']}-{i}", namespace="ns",
+                             annotations={ann_key: j["name"]},
+                             containers=[{"requests": dict(req)}], **kw)
+            t = api.TaskInfo(pod)
+            job.add_task_info(t)
+            tasks.append(t)
+        jobs[job.uid] = job
+    queues = {q["name"]: SimpleNamespace(weight=q["weight"],
+                                         capability=q["capability"])
+              for q in spec["queues"]}
+    return jobs, nodes, tasks, queues
+
+
+#: the rescaling tree of tests/test_fairshare.py TestHDRF (uniform depth
+#: under eng, sci one level up) and the ragged trees of its
+#: TestHDRFRaggedParity
+RESCALING = [("root/sci", "100/50"), ("root/eng/dev", "100/50/50"),
+             ("root/eng/prod", "100/50/50")]
+RAGGED = [("root/a", "100/3"), ("root/a/b", "100/3/2"),
+          ("root/a/c", "100/3/1"), ("root/d", "100/2"),
+          ("root/d/e/f", "100/2/4/1"), ("root/g", "100/1"),
+          ("root/g/h", "100/1/2")]
+#: example/hierarchical-jobs.yaml's three leaf queues
+EXAMPLE = [("root/eng/prod", "1/2/8"), ("root/eng/dev", "1/2/2"),
+           ("root/sci", "1/2")]
+
+
+def hdrf_flatten(pkg: str, seed: int, tree, n_queues: int = 4, **spec_kw):
+    """A seeded flatten of package ``pkg`` whose queues carry the drf
+    hierarchy (``tree`` cycled over the queues), with seeded integral drf
+    allocations, a drf total and the hdrf tree built."""
+    api, ops = pkg_mod(pkg, "api"), pkg_mod(pkg, "ops")
+    spec = cluster_spec(seed, n_queues=n_queues, **spec_kw)
+    jobs, nodes, tasks, queues = build_cluster(pkg, spec)
+    for i, q in enumerate(sorted(queues)):
+        queues[q].hierarchy, queues[q].weights = tree[i % len(tree)]
+    arr = ops.flatten_snapshot(jobs, nodes, tasks, queues=queues)
+    rng = np.random.default_rng(seed + 1000)
+    nj = len(arr.jobs_list)
+    arr.drf_total = (arr.node_alloc * arr.node_valid[:, None]).sum(
+        axis=0).astype(np.float32)
+    # integral allocations, so saturation compares exactly
+    arr.job_drf_allocated[:nj, 0] = 1000.0 * rng.integers(0, 4, nj)
+    arr.job_drf_allocated[:nj, 1] = float(1 << 30) * rng.integers(0, 4, nj)
+    arr.job_drf_prerank[:nj] = rng.integers(0, 2, nj)
+    total = api.Resource(
+        milli_cpu=float(arr.job_drf_allocated[:, 0].sum()),
+        memory=float(arr.job_drf_allocated[:, 1].sum()))
+    pkg_mod(pkg, "ops.hdrf").build_hdrf(arr, queues, {}, total)
+    return arr
 
 
 def build_pod(models, ann_key, namespace: str, name: str, node_name: str,

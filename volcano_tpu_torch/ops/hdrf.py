@@ -20,7 +20,10 @@ the same semantics:
   empty segment reads the same value; ``segment_sum`` becomes
   ``index_add_`` (float sums accumulated in float64 and rounded once, so
   the card and the host round alike: ROADMAP Queue C);
-- sorts are stable (``jnp.lexsort`` / ``jnp.argsort`` are).
+- sorts are stable (``jnp.lexsort`` / ``jnp.argsort`` are);
+- where the JAX package's solve compiles each round's rank and cap into
+  its jitted loop, on the card ``RankCapGraph`` captures it once per
+  solve into a CUDA graph and replays it.
 
 Contract notes (as in the JAX package):
 - the comparator walk (drf.go _compareQueues) compares (saturated,
@@ -40,6 +43,8 @@ Contract notes (as in the JAX package):
 
 from __future__ import annotations
 
+import logging
+import threading
 from typing import Dict, Tuple
 
 import numpy as np
@@ -50,6 +55,8 @@ from .solver import (
     INF, INT32_MAX, _exact_sum, _lexsort, _scatter_set, _segment_any,
     _segment_min, _segment_prefix, _segment_sum,
 )
+
+log = logging.getLogger(__name__)
 
 
 def build_hdrf(arr, queues, job_attrs, total_allocated) -> None:
@@ -395,6 +402,137 @@ def hdrf_state(a, rank):
         return r_rank, still
 
     return rank_and_cap
+
+
+class _PoolShelf:
+    """Memory pools for the rank and cap's graphs, reused from solve to
+    solve. A graph's private pool that PyTorch releases is only marked
+    freeable: its segments stay reserved until the allocator's cache is
+    emptied. So a solve's graph captures into a pool that an earlier
+    solve's graph used, and hands it back when the solve ends (outputs
+    dropped) with an event after its last replay; the next borrower's
+    stream waits on that event, so no replay of its own can touch the
+    blocks before the last one's ended. The shelf keeps the last graph of
+    each pool (never replayed again), because PyTorch's allocators let a
+    capture share a pool only while another graph holds it, and the
+    pool's capture stream, because the allocator reuses a free block only
+    on the stream it was allocated on. At most as many pools as hdrf
+    solves that ever ran at once on a card."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        #: (device, pool handle, capture stream, its last graph, event
+        #: after that graph's last replay)
+        self.free: list = []
+
+    def take(self, device) -> tuple:
+        """(pool handle, its capture stream, the graph that holds the pool
+        or None for a new pool)."""
+        with self.lock:
+            for i, (dev, pool, stream, graph, done) in enumerate(self.free):
+                if dev == device:
+                    del self.free[i]
+                    torch.cuda.current_stream(device).wait_event(done)
+                    return pool, stream, graph
+        # a high-priority pool stream: pool streams are handed out round
+        # robin, and the readbacks take the default priority's
+        return (torch.cuda.graph_pool_handle(),
+                torch.cuda.Stream(device, priority=-1), None)
+
+    def give(self, device, pool, stream, graph) -> None:
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(device))
+        with self.lock:
+            self.free.append((device, pool, stream, graph, done))
+
+
+#: the process's pools: a card's memory is the process's, not a solve's
+_POOLS = _PoolShelf()
+
+
+class RankCapGraph:
+    """``hdrf_state``'s ``rank_and_cap`` replayed from one CUDA graph for
+    the rest of a solve on the card.
+
+    A round's rank and cap is ~800 small kernels with no host read among
+    them, on shapes fixed for the whole solve (T, J, H, D, R): the host's
+    launches, not the card, set its pace. The first call runs eagerly and
+    doubles as the warm-up. The second captures the chain into a graph
+    that reads its two inputs (eligible [T] bool, jobres [J, R] float32)
+    from static buffers and writes its two outputs (r_rank [T] int32,
+    still [T] bool) to static ones, then replays it; every later call
+    copies its inputs in and replays. The kernels, their order and their
+    data are the eager call's, so every output is the eager one bit for
+    bit. A capture that raises leaves the solve eager, with a warning
+    saying why: a wrong answer is never the fallback.
+
+    ``mode`` says how the last call ran: "eager", "capture" or "replay".
+    ``close()`` releases the graph and hands its memory pool back."""
+
+    def __init__(self, rank_and_cap):
+        self.fn = rank_and_cap
+        self.calls = 0
+        self.mode = "eager"
+        self.graph = self.pool = None
+        self.inputs = self.outputs = None
+
+    def __call__(self, eligible, jobres):
+        self.calls += 1
+        if self.calls == 2:
+            self.mode = "capture" if self._capture(eligible, jobres) \
+                else "eager"
+        elif self.mode != "eager":
+            self.mode = "replay"
+            self.inputs[0].copy_(eligible)
+            self.inputs[1].copy_(jobres)
+        if self.mode == "eager":
+            return self.fn(eligible, jobres)
+        # a replay launches on the current device's stream
+        with torch.cuda.device(eligible.device):
+            self.graph.replay()
+        # the static outputs are overwritten by the next replay
+        return self.outputs[0].clone(), self.outputs[1].clone()
+
+    def _capture(self, eligible, jobres) -> bool:
+        """Capture ``fn`` on this round's inputs; False if it raised.
+
+        The capture runs on a side stream, its pool's (``_PoolShelf``):
+        the job updater's workers and the bind effectors launch on the
+        ambient stream during a cycle, and what another thread queues on a
+        capturing stream lands in the graph. ``thread_local``: those
+        threads' own CUDA calls do not invalidate this thread's capture.
+        Not ``torch.cuda.graph``, whose entry synchronises the device and
+        empties the allocator's cache."""
+        dev = eligible.device
+        pool, side, holder = _POOLS.take(dev)
+        self.inputs = (eligible.clone(), jobres.clone())
+        graph = torch.cuda.CUDAGraph()
+        side.wait_stream(torch.cuda.current_stream(dev))
+        try:
+            with torch.cuda.stream(side):
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    outputs = self.fn(*self.inputs)
+                finally:
+                    graph.capture_end()
+        except RuntimeError as e:
+            # the pool is not handed back: the next solve takes a new one
+            log.warning("hdrf rank and cap: CUDA graph capture failed, "
+                        "the solve runs eagerly: %s: %s",
+                        type(e).__name__, e)
+            self.inputs = None
+            return False
+        del holder      # the new graph holds the pool now
+        self.graph, self.outputs = graph, outputs
+        self.pool = (dev, pool, side)
+        return True
+
+    def close(self) -> None:
+        self.inputs = self.outputs = None
+        if self.pool is not None:
+            _POOLS.give(*self.pool, self.graph)
+        self.graph = self.pool = None
 
 
 def hdrf_rank_state(a, rank):

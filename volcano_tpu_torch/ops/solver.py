@@ -585,6 +585,8 @@ class _Fairness:
         else:
             self.qalloc0 = torch.zeros((1, R), dtype=torch.float32,
                                        device=dev)
+        #: the hdrf rank and cap's graph (hdrf on the card), else None
+        self.rank_cap_graph = None
         if use_drf_order:
             self.jobres0, self.drf_rank, self.drf_cap = drf_state(
                 a, self.rank)
@@ -593,8 +595,11 @@ class _Fairness:
                 # cap both come from the weighted tree — one tree
                 # recursion per round feeds the re-rank and the
                 # per-ancestor-level gate
-                from .hdrf import hdrf_state
+                from .hdrf import RankCapGraph, hdrf_state
                 self.hdrf_rank_cap = hdrf_state(a, self.rank)
+                if dev.type == "cuda":
+                    self.rank_cap_graph = self.hdrf_rank_cap = \
+                        RankCapGraph(self.hdrf_rank_cap)
         else:
             self.jobres0 = torch.zeros((1, R), dtype=torch.float32,
                                        device=dev)
@@ -624,10 +629,13 @@ class _Fairness:
         some node can take this round, so that a task no node can take
         does not hold its sibling group's min key or pin its subtree's
         budget."""
-        with tracing.traced("vc.round.order", kind=self.kind):
+        with tracing.traced("vc.round.order", kind=self.kind,
+                            graph="eager") as sp:
             if self.use_hdrf:
                 r_rank, eligible = self.hdrf_rank_cap(eligible & placeable,
                                                       st.jobres)
+                if self.rank_cap_graph is not None:
+                    sp.set(graph=self.rank_cap_graph.mode)
             elif self.use_drf_order:
                 r_rank = self.drf_rank(st.jobres)
                 eligible = self.drf_cap(eligible, st.jobres)
@@ -640,6 +648,11 @@ class _Fairness:
                     eligible, st.qalloc, bound,
                     r_rank if self.use_drf_order else None)
         return r_rank, eligible
+
+    def close(self) -> None:
+        """Release the rank and cap's graph, once the solve is over."""
+        if self.rank_cap_graph is not None:
+            self.rank_cap_graph.close()
 
     def account(self, st: _State, tasks, sign: int) -> None:
         """Add (sign 1) or take back (sign -1) ``tasks``' requests in the
@@ -903,7 +916,10 @@ def solve_allocate(arrays: Dict[str, object],
                 assigned=torch.full((T,), -1, dtype=torch.int32, device=dev),
                 kind=torch.full((T,), -1, dtype=torch.int32, device=dev),
                 excluded=~a["job_valid"], rounds=0)
-    fair.gang_fixpoint(st, run_phases, credit, max_gang_iters)
+    try:
+        fair.gang_fixpoint(st, run_phases, credit, max_gang_iters)
+    finally:
+        fair.close()
     return SolveResult(
         assigned=st.assigned, kind=st.kind, job_ready=fair.job_ready(st),
         rounds=torch.tensor(st.rounds, dtype=torch.int32, device=dev),

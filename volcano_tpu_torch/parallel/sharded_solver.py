@@ -302,7 +302,10 @@ def _solve(reps: Sequence[Dict[str, torch.Tensor]],
                 assigned=torch.full((T,), -1, dtype=torch.int32, device=dev0),
                 kind=torch.full((T,), -1, dtype=torch.int32, device=dev0),
                 rounds=0)
-    fair.gang_fixpoint(st, run_phases, credit, max_gang_iters)
+    try:
+        fair.gang_fixpoint(st, run_phases, credit, max_gang_iters)
+    finally:
+        fair.close()
     return SolveResult(assigned=st.assigned, kind=st.kind,
                        job_ready=fair.job_ready(st),
                        rounds=torch.tensor(st.rounds, dtype=torch.int32,
