@@ -1,5 +1,6 @@
-"""The benchmark's bind effector: FakeBinder's ``bind(pod, hostname)``,
-each bind stamped with ``time.perf_counter()`` and the cycle it came in."""
+"""The benchmark's effectors: FakeBinder's ``bind(pod, hostname)`` and
+FakeEvictor's ``evict(pod, reason)``, each call stamped with
+``time.perf_counter()`` and the cycle it came in."""
 
 from __future__ import annotations
 
@@ -17,3 +18,18 @@ class StampingBinder:
     def bind(self, pod, hostname: str) -> None:
         self.records.append((self.cycle, f"{pod.namespace}/{pod.name}",
                              hostname, time.perf_counter()))
+
+
+class StampingEvictor:
+    """Records (cycle, "ns/pod", reason, perf_counter) for every eviction;
+    the cluster store is not written, as with FakeEvictor: the pod stays
+    Releasing in the cache until the traffic releases it
+    (``World.release``)."""
+
+    def __init__(self):
+        self.cycle = -1
+        self.records: list = []
+
+    def evict(self, pod, reason: str) -> None:
+        self.records.append((self.cycle, f"{pod.namespace}/{pod.name}",
+                             reason, time.perf_counter()))

@@ -4,11 +4,12 @@
         --seconds <s> [--dtype bfloat16]
 
 For each seed, one run of the cell (set-up, a window of ``--seconds``),
-then over the same cycles two readings: the program's bind mismatches
-against the float32 reference (the lower reading, which sound runs give)
-and those of the reference computed with its node scores in ``--dtype``
-(the control, the upper reading). One JSON line a seed, then a summary.
-The benchmark's own runs do not run this.
+then over the same cycles two readings: the program's bind and eviction
+mismatches against the float32 reference (the lower reading, which sound
+runs give) and those of the reference computed with its node scores in
+``--dtype`` (the control, the upper reading). The reference is the one
+the cell's configuration names (``check.reference_module``). One JSON
+line a seed, then a summary. The benchmark's own runs do not run this.
 """
 
 from __future__ import annotations
@@ -44,6 +45,9 @@ def main(argv=None) -> int:
         row = {"seed": seed, "correct": out["correct"],
                "program": out["checks"]["bind_mismatches"]["value"],
                "control": out["control_bind_mismatches"],
+               "program_evictions":
+                   out["checks"]["eviction_mismatches"]["value"],
+               "control_evictions": out["control_eviction_mismatches"],
                "compared_cycles": out["compared_cycles"],
                "failed": out["failed"], "check_s": out["check_s"]}
         rows.append(row)
@@ -52,6 +56,8 @@ def main(argv=None) -> int:
         "workload": args.workload, "dtype": args.dtype,
         "lower": max(r["program"] for r in rows),
         "upper": min(r["control"] for r in rows),
+        "lower_evictions": max(r["program_evictions"] for r in rows),
+        "upper_evictions": min(r["control_evictions"] for r in rows),
         "seeds": len(rows)}), flush=True)
     return 0
 

@@ -3,9 +3,15 @@ the correctness check and the result line.
 
 Everything that belongs to a cell is data found by name: the cell's entry
 in ``BENCHMARK.json``, its file ``workloads/<cell>.json`` (its config and
-its traffic kind with that kind's parameters), the config's file, the
-traffic kind's module ``traffic/<kind>.py`` and, for each metric
-``BENCHMARK.json`` gives the cell, the reader ``metrics/<metric>.py``.
+its traffic kind with that kind's parameters), the config's file (its
+conf, nodes, queues with their optional ``capability`` and
+``reclaimable``, optional ``priority_classes``, and optional
+``reference``: the module under ``benchmark/`` that the check holds the
+cell to, ``check.reference_module``), the traffic kind's module
+``traffic/<kind>.py`` (which drives the store through ``World``'s
+methods) and, for each metric ``BENCHMARK.json`` gives the cell, the
+reader ``metrics/<metric>.py``, which reads the run's cycles, binds and
+evictions (``readers.RunData``).
 """
 
 from __future__ import annotations
@@ -67,7 +73,8 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
     seconds since the process started (default: since this call).
     ``control_dtype``: also count, over the same cycles, the mismatches of
     the reference computed with its scores in that precision
-    (``control_bind_mismatches``; ``control.py``)."""
+    (``control_bind_mismatches``, ``control_eviction_mismatches``;
+    ``control.py``)."""
     import torch
 
     t_call = time.perf_counter()
@@ -97,6 +104,7 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
     t1 = time.perf_counter()
     n_window = len(world.cycles) - first
     n_records = len(world.binder.records)
+    n_evictions = len(world.evictor.records)
 
     summary = None
     if trace and on_card:
@@ -112,6 +120,8 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
                   cycles=cycles[:n_window],
                   binds=[r for r in world.binder.records[:n_records]
                          if r[0] >= first],
+                  evictions=[r for r in world.evictor.records[:n_evictions]
+                             if r[0] >= first],
                   submit_t=world.submit_t, trace=summary)
     metrics = {}
     for m in cell_metrics(bench, cell, trace):
@@ -124,6 +134,10 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
     for cyc, key, node, _ in world.binder.records:
         if cyc >= first:
             binds_by_cycle.setdefault(cyc, {})[key] = node
+    evictions_by_cycle: dict = {}
+    for cyc, key, reason, _ in world.evictor.records:
+        if cyc >= first:
+            evictions_by_cycle.setdefault(cyc, {})[key] = reason
     records = world.records
     conf_text = config["conf"]
     del world, mix
@@ -131,10 +145,12 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
     if on_card:
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    got = check.compare(start, cycles, binds_by_cycle, records, conf_text,
-                        device=device)
+    ref = check.reference_module(config)
+    got = check.compare(start, cycles, binds_by_cycle, evictions_by_cycle,
+                        records, conf_text, ref, device=device)
     checks = {
         "bind_mismatches": got["bind_mismatches"],
+        "eviction_mismatches": got["eviction_mismatches"],
         "failed_cycles": sum(c.failure is not None for c in cycles),
         "start_violations": check.start_violations(start),
     }
@@ -156,10 +172,11 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
     out["compared_cycles"] = got["compared_cycles"]
     out["check_s"] = time.perf_counter() - t_check
     if control_dtype is not None:
-        ctl = check.compare(start, cycles, binds_by_cycle, records,
-                            conf_text, score_dtype=control_dtype,
-                            device=device)
+        ctl = check.compare(start, cycles, binds_by_cycle,
+                            evictions_by_cycle, records, conf_text, ref,
+                            score_dtype=control_dtype, device=device)
         out["control_bind_mismatches"] = ctl["bind_mismatches"]
+        out["control_eviction_mismatches"] = ctl["eviction_mismatches"]
     out["failures"] = sorted({c.failure for c in cycles if c.failure})[:5]
     out["checks"] = {k: {"value": v, "limit": check.LIMITS[k]}
                      for k, v in checks.items()}

@@ -4,7 +4,7 @@ and a few reductions over it."""
 from __future__ import annotations
 
 import statistics
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -14,8 +14,9 @@ import numpy as np
 class RunData:
     """One run, as the readers see it. ``cycles``: the window's cycle
     records (world.Cycle); ``binds``: (cycle, "ns/pod", node, t) of the
-    window's binds; ``submit_t``: gang -> when it was handed to the store;
-    ``trace``: the traced window's summary (``trace.summarize``) or
+    window's binds; ``evictions``: (cycle, "ns/pod", reason, t) of the
+    window's evictions; ``submit_t``: gang -> when it was handed to the
+    store; ``trace``: the traced window's summary (``trace.summarize``) or
     None."""
 
     cell: str
@@ -25,6 +26,7 @@ class RunData:
     binds: list
     submit_t: Dict[str, float]
     trace: Optional[dict] = None
+    evictions: list = field(default_factory=list)
 
 
 def timing_median(run: RunData, *keys: str) -> Optional[float]:

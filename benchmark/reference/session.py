@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Set
 
 import numpy as np
 import yaml
@@ -49,6 +49,7 @@ class Gang:
     pod_uids: List[str]
     req: Res
     ct: float                  # creation timestamp of podgroup and pods
+    priority: int = 0          # the priority class's value (job and pods)
 
 
 @dataclass
@@ -65,18 +66,25 @@ class Queue:
     hierarchy: str = ""
     weights: str = ""
     ct: float = 0.0
+    capability: Optional[Res] = None     # None: no capability (unbounded)
+    reclaimable: Optional[bool] = None   # None: Volcano's default (true)
 
 
 @dataclass
 class ClusterState:
     """What the store holds: ``gangs`` in submission order, ``placed``
-    pod name -> node name for every bound pod."""
+    pod name -> node name for every pod bound or placed on a node;
+    ``running``: the placed pods reported Running (the others are still
+    binding); ``releasing``: the placed pods evicted and not yet released
+    (an evicted pod leaves ``running``)."""
 
     namespace: str
     nodes: List[Node]
     queues: List[Queue]
     gangs: Dict[str, Gang] = field(default_factory=dict)
     placed: Dict[str, str] = field(default_factory=dict)
+    running: Set[str] = field(default_factory=set)
+    releasing: Set[str] = field(default_factory=set)
     #: values that depend on a gang's shape and count alone, kept across
     #: cycles (read-only once made)
     memo: Dict[tuple, object] = field(default_factory=dict, repr=False,
@@ -391,6 +399,10 @@ def _vec(r: Res, scalars: List[str]) -> np.ndarray:
 
 def build_problem(state: ClusterState, conf: Conf) -> Optional[Problem]:
     """The session's solve, or None when no task is pending."""
+    if any(q.capability is not None for q in state.queues):
+        raise Unsupported("a queue capability (proportion's clamp)")
+    if state.releasing:
+        raise Unsupported("releasing pods (the future idle they free)")
     plugins = conf.plugins
     queues = {q.name: q for q in state.queues}
     jobs = [j for j in _jobs(state) if j.queue in queues]
@@ -459,8 +471,8 @@ def build_problem(state: ClusterState, conf: Conf) -> Optional[Problem]:
 
     def job_key(j: _Job):
         ready = j.ready_num >= j.gang.min_member
-        return ((0, ready, dominant_share(j.allocated, total)), True,
-                j.gang.ct, j.uid)
+        return ((-j.gang.priority, ready, dominant_share(j.allocated, total)),
+                True, j.gang.ct, j.uid)
 
     order_q = sorted((queues[q] for q in by_queue),
                      key=functools.cmp_to_key(queue_cmp))
@@ -560,7 +572,8 @@ def build_problem(state: ClusterState, conf: Conf) -> Optional[Problem]:
     for jx, j in enumerate(job_order):
         a["job_drf_allocated"][jx] = _vec(j.allocated, scalars)
     a["drf_total"] = _vec(total, scalars)
-    keys = [(0, j.ready_num >= j.gang.min_member) for j in job_order]
+    keys = [(-j.gang.priority, j.ready_num >= j.gang.min_member)
+            for j in job_order]
     rank_of = {k: r for r, k in enumerate(sorted(set(keys)))}
     a["job_drf_prerank"] = np.zeros(J, np.int32)
     for jx, k in enumerate(keys):

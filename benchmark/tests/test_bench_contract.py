@@ -83,7 +83,7 @@ def test_names_units_and_files(bench):
 
 
 def test_configs_conf_is_the_deployments(bench):
-    from benchmark.reference import Conf
+    from benchmark.check import reference_module
     from volcano_tpu_torch.conf import load_scheduler_conf
     with open(os.path.join(REPO, "installer_torch",
                            "scheduler-conf.yaml")) as f:
@@ -92,7 +92,7 @@ def test_configs_conf_is_the_deployments(bench):
         with open(os.path.join(REPO, c["file"])) as f:
             cfg = json.load(f)
         port = load_scheduler_conf(cfg["conf"])
-        ref = Conf.parse(cfg["conf"])
+        ref = reference_module(cfg).parse(cfg["conf"])
         assert [[p.name for p in t.plugins] for t in port.tiers] == ref.tiers
         if c["name"] == "default-2k":
             assert load_scheduler_conf(installer).tiers == port.tiers
