@@ -1,10 +1,13 @@
 """The hdrf rank and cap replayed from a CUDA graph
-(``volcano_tpu_torch.ops.hdrf.RankCapGraph``), on the card.
+(``volcano_tpu_torch.ops.hdrf.RankCapGraph``), on the card, in the
+sharded solve's loop (``parallel.solve_allocate_sharded`` on a one-card
+mesh), its user: the single-device solve replays whole rounds
+(``ops.round_graph``, tests/test_torch_round_graph.py).
 
-- A seeded hdrf ``solve_allocate`` gives the same ``assigned``, ``kind``,
-  ``job_ready``, ``rounds`` and ``compact``, bit for bit, as the same
-  solve whose capture raises (before it begins, or inside it on a host
-  read), which then runs eagerly to its end.
+- A seeded hdrf solve gives the same ``assigned``, ``kind``,
+  ``job_ready`` and ``rounds``, bit for bit, as the same solve whose
+  capture raises (before it begins, or inside it on a host read), which
+  then runs eagerly to its end.
 - Seeded (eligible, jobres) pairs through the replayed rank and cap equal
   eager calls exactly, and a replay leaves earlier results as they were.
 - The solve's ``vc.round.order`` spans read one "eager", one "capture" and
@@ -25,9 +28,10 @@ from torch.profiler import ProfilerActivity, profile
 
 from torch_helpers import EXAMPLE, RAGGED, hdrf_flatten
 from volcano_tpu_torch.metrics import tracing
-from volcano_tpu_torch.ops import hdrf, solve_allocate
+from volcano_tpu_torch.ops import hdrf
+from volcano_tpu_torch.parallel import make_mesh, solve_allocate_sharded
 
-RESULT_KEYS = ("assigned", "kind", "job_ready", "rounds", "compact")
+RESULT_KEYS = ("assigned", "kind", "job_ready", "rounds")
 
 #: (tree, seed): at SOLVE_SIZE a few dozen rounds each (50 and 45 on the
 #: CPU's dense path); at PAIR_SIZE (test_torch_hdrf.py's rank and cap
@@ -58,8 +62,9 @@ def _problem(tree, seed: int, size=SOLVE_SIZE):
 
 
 def _solve(arr, params, device):
-    res = solve_allocate(arr.numpy_dict(), params, device=device,
-                         use_drf_order=True, use_hdrf_order=True)
+    res = solve_allocate_sharded(arr.numpy_dict(), params,
+                                 make_mesh([device]), use_drf_order=True,
+                                 use_hdrf_order=True)
     return {k: getattr(res, k).cpu().numpy() for k in RESULT_KEYS}
 
 

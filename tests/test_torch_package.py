@@ -116,16 +116,16 @@ IMPORT_RE = re.compile(
 
 def test_port_has_every_module_of_the_jax_package():
     """File for file, the port holds every module of the JAX package but
-    its Pallas kernel's, and adds only its own kernel, build, conversion
-    and mesh modules and its span recorder."""
+    its Pallas kernel's, and adds only its own kernel, build, conversion,
+    mesh and round-graph modules and its span recorder."""
     def tree(root):
         return {p.relative_to(root).as_posix() for p in root.rglob("*.py")}
     ref = tree(REPO / "volcano_tpu")
     port = tree(PORT_DIR)
     assert ref - port == {"ops/pallas_kernels.py"}
     assert port - ref == {"ops/_build.py", "ops/convert.py",
-                          "ops/fused_choice.py", "parallel/mesh.py",
-                          "metrics/tracing.py"}
+                          "ops/fused_choice.py", "ops/round_graph.py",
+                          "parallel/mesh.py", "metrics/tracing.py"}
     assert (PORT_DIR / "csrc" / "fused_choice.cu").is_file()
 
 

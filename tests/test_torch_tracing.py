@@ -8,13 +8,16 @@
   phase key equals its span's duration exactly; the ``vc.round`` spans
   count the solve's rounds; the exported spans sit on their
   ``user_annotation`` events in the torch trace.
-- Every ``vc.round.order`` span of a CPU solve ran eagerly (``graph``
-  "eager": the hdrf rank and cap's CUDA graph is for the card).
+- Every ``vc.round.order`` and ``vc.round`` span of a CPU solve ran
+  eagerly (``graph`` "eager": the CUDA graphs are for the card); with the
+  round graphs' stand-in (tests/test_torch_round_graph.py) a replayed
+  round opens no ``vc.round.order`` span, and every other round one.
 - The benchmark's span readers (``benchmark/metrics``, ``benchmark/spans.py``)
   read positive numbers from spans recorded here, and nothing where the
-  port has no recorder; ``order_graph_share.hdrf`` reads 0.0 from the CPU's
-  hdrf spans, the replayed share from spans marked as replayed, and
-  nothing from order spans without the ``graph`` attribute.
+  port has no recorder; ``order_graph_share.hdrf`` and the two
+  ``round_graph_share`` readers read 0.0 from the CPU's spans, the
+  replayed share from spans marked as replayed, and nothing from spans
+  without the ``graph`` attribute.
 """
 
 from __future__ import annotations
@@ -327,13 +330,13 @@ def test_order_spans_run_eagerly_on_the_cpu(traced):
     assert orders and all(s.attrs["graph"] == "eager" for s in orders)
 
 
-def _as_replayed(spans):
-    """The spans with every ``vc.round.order`` of a cycle but its first
-    two marked "replay" (a solve on the card); the median share of
-    replays a cycle that the reader should then read."""
+def _as_replayed(spans, name: str = "vc.round.order"):
+    """The spans with every ``name`` span of a cycle but its first two
+    marked "replay" (a solve on the card); the median share of replays a
+    cycle that the reader should then read."""
     seen, out, shares = {}, [], {}
     for s in sorted(spans, key=lambda s: s.start_ns):
-        if s.name == "vc.round.order":
+        if s.name == name:
             k = seen[s.cycle] = seen.get(s.cycle, 0) + 1
             s = s._replace(attrs=dict(s.attrs,
                                       graph="replay" if k > 2 else "eager"))
@@ -362,8 +365,70 @@ def test_order_graph_share_reads_the_replayed_share(form, traces,
     assert _reader("order_graph_share.hdrf").read(None) == want
 
 
+ROUND_GRAPH_READERS = {"drf": "round_graph_share.steady",
+                       "hdrf": "round_graph_share.hdrf"}
+
+
+def test_round_spans_run_eagerly_on_the_cpu(traced):
+    rounds = [s for s in traced["spans"] if s.name == "vc.round"]
+    assert rounds and all(s.attrs["graph"] == "eager" for s in rounds)
+
+
+@pytest.mark.parametrize("kind", sorted(CONFS))
+def test_a_replayed_round_opens_no_order_span(kind, monkeypatch):
+    """Cycles whose solves run through the round graphs' stand-in: each
+    ``vc.round`` says how it ran; a replayed one holds no
+    ``vc.round.order`` span (its Python did not run), every other one
+    holds one."""
+    from test_torch_round_graph import StandIn
+    from volcano_tpu_torch.ops import round_graph
+
+    monkeypatch.setattr(round_graph, "GRAPHS",
+                        round_graph.RoundGraphs(StandIn()))
+    c = _cluster(kind)
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(3):
+            _cycle(c)
+    spans = tracing.spans()
+    tracing.clear()
+    rounds = {s.id: s for s in spans if s.name == "vc.round"}
+    modes = [s.attrs["graph"] for s in rounds.values()]
+    assert modes.count("replay") > 0 and modes.count("capture") > 0
+    orders = {}
+    for s in spans:
+        if s.name == "vc.round.order":
+            orders[s.parent] = orders.get(s.parent, 0) + 1
+    for rid, r in rounds.items():
+        want = 0 if r.attrs["graph"] == "replay" else 1
+        assert orders.get(rid, 0) == want, r
+
+
+@pytest.mark.parametrize("form", ["cpu", "replayed", "no_attribute"])
+@pytest.mark.parametrize("kind", sorted(ROUND_GRAPH_READERS))
+def test_round_graph_share_reads_the_replayed_share(kind, form, traces,
+                                                    repo_on_path,
+                                                    monkeypatch):
+    """0.0 on the CPU's eager trace; the median share of replayed rounds
+    where rounds replayed; nothing where the round spans carry no
+    ``graph`` attribute, as a program without the round graphs records
+    them."""
+    spans = list(traces(kind)["spans"])
+    want = 0.0
+    if form == "replayed":
+        spans, want = _as_replayed(spans, "vc.round")
+        assert 0.0 < want < 1.0
+    elif form == "no_attribute":
+        spans = [s._replace(attrs={k: v for k, v in s.attrs.items()
+                                   if k != "graph"}) for s in spans]
+        want = None
+    monkeypatch.setattr(tracing, "spans", lambda: spans)
+    assert _reader(ROUND_GRAPH_READERS[kind]).read(None) == want
+
+
 @pytest.mark.parametrize("name", STEADY_READERS + HDRF_READERS
-                         + ("order_graph_share.hdrf",))
+                         + ("order_graph_share.hdrf",)
+                         + tuple(sorted(ROUND_GRAPH_READERS.values())))
 def test_span_readers_read_nothing_without_the_recorder(name, repo_on_path,
                                                         monkeypatch):
     monkeypatch.setitem(sys.modules, "volcano_tpu_torch.metrics.tracing",

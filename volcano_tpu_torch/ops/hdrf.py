@@ -22,8 +22,9 @@ the same semantics:
   the card and the host round alike: ROADMAP Queue C);
 - sorts are stable (``jnp.lexsort`` / ``jnp.argsort`` are);
 - where the JAX package's solve compiles each round's rank and cap into
-  its jitted loop, on the card ``RankCapGraph`` captures it once per
-  solve into a CUDA graph and replays it.
+  its jitted loop, on the card the sharded solve's ``RankCapGraph``
+  captures it once per solve into a CUDA graph and replays it (the
+  single-device solve replays whole rounds, ``ops.round_graph``).
 
 Contract notes (as in the JAX package):
 - the comparator walk (drf.go _compareQueues) compares (saturated,
@@ -405,19 +406,21 @@ def hdrf_state(a, rank):
 
 
 class _PoolShelf:
-    """Memory pools for the rank and cap's graphs, reused from solve to
-    solve. A graph's private pool that PyTorch releases is only marked
+    """Memory pools for the solves' CUDA graphs (the rank and cap's here,
+    the round bodies' in ``ops.round_graph``), reused from graph to
+    graph. A graph's private pool that PyTorch releases is only marked
     freeable: its segments stay reserved until the allocator's cache is
-    emptied. So a solve's graph captures into a pool that an earlier
-    solve's graph used, and hands it back when the solve ends (outputs
-    dropped) with an event after its last replay; the next borrower's
+    emptied. So a graph captures into a pool that an earlier graph used,
+    and hands it back when its holder is done with it (outputs dropped)
+    with an event after its last replay; the next borrower's
     stream waits on that event, so no replay of its own can touch the
     blocks before the last one's ended. The shelf keeps the last graph of
     each pool (never replayed again), because PyTorch's allocators let a
     capture share a pool only while another graph holds it, and the
     pool's capture stream, because the allocator reuses a free block only
-    on the stream it was allocated on. At most as many pools as hdrf
-    solves that ever ran at once on a card."""
+    on the stream it was allocated on. At most as many pools as graph
+    holders (sharded hdrf solves, kept round-graph keys) that ever held
+    one at once on a card."""
 
     def __init__(self):
         self.lock = threading.Lock()
@@ -452,7 +455,7 @@ _POOLS = _PoolShelf()
 
 class RankCapGraph:
     """``hdrf_state``'s ``rank_and_cap`` replayed from one CUDA graph for
-    the rest of a solve on the card.
+    the rest of a sharded solve on the card.
 
     A round's rank and cap is ~800 small kernels with no host read among
     them, on shapes fixed for the whole solve (T, J, H, D, R): the host's

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..metrics import tracing
+from . import round_graph
 from .convert import resolve_device, to_torch_arrays, to_torch_params
 from .fused_choice import (
     NEG, REL_FIT_TOL, _score, fused_choice, fused_setup, pack_pars,
@@ -296,26 +297,39 @@ def drf_state(a, rank):
     return a["job_drf_allocated"], drf_rank, drf_cap
 
 
-def queue_cap_state(a, rank, thr, total, ease_unrequested: bool = True):
-    """Prelude for per-queue fair share: water-filled deserved, the
-    task->queue map, and the static (queue, rank) sort for per-round
-    prefix caps."""
-    q = a["queue_weight"].shape[0]
+def queue_deserved(a, thr, total, ease_unrequested: bool = True):
+    """Per-queue deserved [Q, R], water-filled from ``total``, the
+    cluster's valid allocatable [R]."""
     deserved = water_fill_deserved(
         total, a["queue_weight"], a["queue_capability"],
-        a["queue_request"], thr, max_iters=q + 1)
+        a["queue_request"], thr, max_iters=a["queue_weight"].shape[0] + 1)
     if ease_unrequested:
         # dims a queue never requested must not bind its cap
         deserved = torch.where(a["queue_request"] > thr[None, :],
                                deserved, INF)
-    task_queue = a["job_queue"].long()[a["task_job"].long()]
+    return deserved
+
+
+def queue_order(task_queue, rank):
+    """The static (queue, rank) sort for per-round prefix caps: (q_perm,
+    q_seg_start)."""
     t = task_queue.shape[0]
     q_perm = _stable_argsort(task_queue * (t + 1) + rank.long())
     s_q = task_queue[q_perm]
     q_seg_start = torch.cat(
         [torch.ones(1, dtype=torch.bool, device=s_q.device),
          s_q[1:] != s_q[:-1]])
-    return q, deserved, task_queue, q_perm, q_seg_start
+    return q_perm, q_seg_start
+
+
+def queue_cap_state(a, rank, thr, total, ease_unrequested: bool = True):
+    """Prelude for per-queue fair share: water-filled deserved, the
+    task->queue map, and the static (queue, rank) sort for per-round
+    prefix caps."""
+    task_queue = a["job_queue"].long()[a["task_job"].long()]
+    return (a["queue_weight"].shape[0],
+            queue_deserved(a, thr, total, ease_unrequested), task_queue) \
+        + queue_order(task_queue, rank)
 
 
 def _queue_cap_mask(eligible, task_queue, req, qrem, thr, scalar_mask,
@@ -462,7 +476,7 @@ def _admission_round_fused(eligible, a, avail, used_now, sig_feas, sig_i8,
     fit_req = a["task_init_req"]
     max_pods = a["node_max_pods"]
     pods_ok = npods < max_pods
-    best_s, best_i, node_score = fused_choice(
+    best_s, best_i, node_score = _fused_choice(
         fit_req, avail.contiguous(), used_now.contiguous(), inv_alloc,
         node_static, eligible.to(torch.float32), pods_ok.to(torch.float32),
         sig_i8, pars, score_families)
@@ -487,11 +501,28 @@ def hdrf_placeable(init_req, avail, used_now, inv_alloc, node_static,
     ``fused_choice`` pass over this round's eligible rows and pods_ok
     nodes; a row is placeable iff some node is feasible for it (its best
     score is not NEG). Only ``best_s`` is read."""
-    best_s, _, _ = fused_choice(
+    best_s, _, _ = _fused_choice(
         init_req, avail.contiguous(), used_now.contiguous(), inv_alloc,
         node_static, eligible.to(torch.float32), pods_ok.to(torch.float32),
         sig_i8, pars, score_families, prefilter=True)
     return best_s > NEG * 0.5
+
+
+def _fused_choice(init_req, avail, *args, **kw):
+    """``fused_choice`` as the round calls it, looked up when called.
+    Inside a round graph's capture the call stays out of the graph
+    (``round_graph.outside``): each replay launches the kernel from
+    Python, so its count, its audits and its wrappers see every call."""
+    T, N, dev = init_req.shape[0], avail.shape[0], init_req.device
+    return round_graph.outside(
+        _call_fused_choice, (init_req, avail) + args, kw, lambda: (
+            torch.empty(T, dtype=torch.float32, device=dev),
+            torch.empty(T, dtype=torch.int32, device=dev),
+            torch.empty(N, dtype=torch.float32, device=dev)))
+
+
+def _call_fused_choice(*args, **kw):
+    return fused_choice(*args, **kw)
 
 
 def _admit_prefix(choice, fit_req, acct_req, avail, rank, thr,
@@ -556,13 +587,15 @@ class _State:
 class _Fairness:
     """A solve's replicated job-side state, shared by the single-device
     and the sharded solves: per-queue deserved caps (``use_queue_cap``,
-    water-filled from ``total``, the cluster's valid allocatable [R]), the
-    live DRF or hierarchical-DRF ranks and caps, each round's admission
-    order under them, and the per-queue / per-job accounting of the
-    round's admissions and the gang reverts."""
+    water-filled from ``total``, the cluster's valid allocatable [R], or
+    an earlier prelude's ``deserved``), the live DRF or hierarchical-DRF
+    ranks and caps, each round's admission order under them, and the
+    per-queue / per-job accounting of the round's admissions and the gang
+    reverts. The order's state is built on first use (``prepare``)."""
 
     def __init__(self, a, total, use_queue_cap: bool, use_drf_order: bool,
-                 use_hdrf: bool, ease_unrequested: bool = True):
+                 use_hdrf: bool, ease_unrequested: bool = True,
+                 deserved=None):
         dev = a["task_rank"].device
         R = a["task_init_req"].shape[1]
         self.a, self.rank = a, a["task_rank"]
@@ -573,41 +606,46 @@ class _Fairness:
         #: the fairness order's kind, as its ``vc.round.order`` spans name it
         self.kind = "hdrf" if use_hdrf else "drf" if use_drf_order \
             else "queue_cap" if use_queue_cap else "none"
+        self.prepared = False
+        zeros = torch.zeros((1, R), dtype=torch.float32, device=dev)
         if use_queue_cap:
-            (self.Q, self.deserved, self.task_queue, self.q_perm,
-             self.q_seg_start) = queue_cap_state(
-                a, self.rank, a["thresholds"], total,
-                ease_unrequested=ease_unrequested)
+            self.Q = a["queue_weight"].shape[0]
+            self.deserved = queue_deserved(
+                a, a["thresholds"], total, ease_unrequested) \
+                if deserved is None else deserved
+            self.task_queue = a["job_queue"].long()[self.tj]
             self.qalloc0 = a["queue_allocated"]
+        else:
+            self.qalloc0 = zeros
+        self.jobres0 = a["job_drf_allocated"] if use_drf_order else zeros
+
+    def prepare(self) -> None:
+        """Build the order's state, once: the static queue sort and the
+        DRF or hdrf rank and cap (hierarchical mode: the comparator AND
+        the progressive cap both come from the weighted tree — one tree
+        recursion per round feeds the re-rank and the per-ancestor-level
+        gate)."""
+        if self.prepared:
+            return
+        self.prepared = True
+        a = self.a
+        if self.use_queue_cap:
+            self.q_perm, self.q_seg_start = queue_order(self.task_queue,
+                                                        self.rank)
             # static-sort gathers hoisted out of the round loop
             self.qs_q = self.task_queue[self.q_perm]
             self.qs_req = a["task_req"][self.q_perm]
-        else:
-            self.qalloc0 = torch.zeros((1, R), dtype=torch.float32,
-                                       device=dev)
-        #: the hdrf rank and cap's graph (hdrf on the card), else None
-        self.rank_cap_graph = None
-        if use_drf_order:
-            self.jobres0, self.drf_rank, self.drf_cap = drf_state(
-                a, self.rank)
-            if use_hdrf:
-                # hierarchical mode: the comparator AND the progressive
-                # cap both come from the weighted tree — one tree
-                # recursion per round feeds the re-rank and the
-                # per-ancestor-level gate
-                from .hdrf import RankCapGraph, hdrf_state
-                self.hdrf_rank_cap = hdrf_state(a, self.rank)
-                if dev.type == "cuda":
-                    self.rank_cap_graph = self.hdrf_rank_cap = \
-                        RankCapGraph(self.hdrf_rank_cap)
-        else:
-            self.jobres0 = torch.zeros((1, R), dtype=torch.float32,
-                                       device=dev)
+        if self.use_hdrf:
+            from .hdrf import hdrf_state
+            self.hdrf_rank_cap = hdrf_state(a, self.rank)
+        elif self.use_drf_order:
+            _, self.drf_rank, self.drf_cap = drf_state(a, self.rank)
 
     def queue_cap(self, eligible, qalloc, bound, order=None):
         """The eligible tasks whose queue's running prefix of eligible
         requests still fits ``bound`` less ``qalloc``, in (queue, rank)
         order (``order``: a live rank, else the static one)."""
+        self.prepare()
         a = self.a
         qrem = torch.clamp(bound - qalloc, min=0.0)
         if order is not None:
@@ -629,13 +667,16 @@ class _Fairness:
         some node can take this round, so that a task no node can take
         does not hold its sibling group's min key or pin its subtree's
         budget."""
+        self.prepare()
         with tracing.traced("vc.round.order", kind=self.kind,
                             graph="eager") as sp:
             if self.use_hdrf:
                 r_rank, eligible = self.hdrf_rank_cap(eligible & placeable,
                                                       st.jobres)
-                if self.rank_cap_graph is not None:
-                    sp.set(graph=self.rank_cap_graph.mode)
+                # the sharded solve's graph (ops.hdrf.RankCapGraph)
+                mode = getattr(self.hdrf_rank_cap, "mode", None)
+                if mode is not None:
+                    sp.set(graph=mode)
             elif self.use_drf_order:
                 r_rank = self.drf_rank(st.jobres)
                 eligible = self.drf_cap(eligible, st.jobres)
@@ -651,8 +692,9 @@ class _Fairness:
 
     def close(self) -> None:
         """Release the rank and cap's graph, once the solve is over."""
-        if self.rank_cap_graph is not None:
-            self.rank_cap_graph.close()
+        close = getattr(getattr(self, "hdrf_rank_cap", None), "close", None)
+        if close is not None:
+            close()
 
     def account(self, st: _State, tasks, sign: int) -> None:
         """Add (sign 1) or take back (sign -1) ``tasks``' requests in the
@@ -739,6 +781,83 @@ class _Fairness:
             it += 1
 
 
+class _RoundBody:
+    """One admission round of ``solve_allocate``: the tensors it reads,
+    built from the solve's arrays, score params and fairness state, and the
+    round itself (``run``). It reads nothing else, so built over a graph's
+    static copies it is that graph's round (``ops.round_graph``)."""
+
+    def __init__(self, a, params, fair: _Fairness, use_fused: bool,
+                 herd_mode: str, score_families: Tuple[str, ...],
+                 per_node_cap: int):
+        self.a, self.params, self.fair = a, params, fair
+        self.use_fused, self.herd_mode = use_fused, herd_mode
+        self.score_families, self.per_node_cap = score_families, per_node_cap
+        fair.prepare()
+        self.tj = a["task_job"].long()
+        self.sig_feas = a["sig_masks"][a["task_sig"].long()] \
+            & a["node_valid"][None, :]                              # [T,N]
+        self.init_req = a["task_init_req"].contiguous()
+        if use_fused:
+            (self.sig_i8, self.inv_alloc, self.fused_pars,
+             self.node_static) = fused_setup(
+                self.sig_feas, a["node_alloc"], params,
+                a["task_init_req"].shape[1])
+
+    def run(self, st: _State, variant: Tuple[bool, bool]):
+        """One round of the phase ``variant`` (use_future, capped) on
+        ``st``, rebinding its fields; returns the admitted rows [T] bool.
+        ``capped=False`` is the work-conserving overflow pass."""
+        use_future, capped = variant
+        a, fair, init_req = self.a, self.fair, self.init_req
+        thr, scalar_mask = a["thresholds"], a["scalar_dim_mask"]
+        families = self.score_families
+        avail = (st.idle + a["node_extra_future"] - st.pipe) \
+            if use_future else st.idle
+        eligible = (a["task_valid"] & (st.assigned < 0)
+                    & ~st.excluded[self.tj])
+        used_now = a["node_used"] + (a["node_idle"] - st.idle)
+        feas0 = placeable = None
+        if fair.use_hdrf:
+            # placeability prefilter: the dense path reuses this round's
+            # feasibility matrix; the fused path pays one extra kernel pass
+            if self.use_fused:
+                placeable = hdrf_placeable(
+                    init_req, avail, used_now, self.inv_alloc,
+                    self.node_static, eligible,
+                    st.npods < a["node_max_pods"], self.sig_i8,
+                    self.fused_pars, families)
+            else:
+                feas0 = fits_matrix(init_req, avail, thr, scalar_mask) \
+                    & self.sig_feas
+                placeable = torch.any(
+                    feas0 & (st.npods < a["node_max_pods"])[None, :], dim=1)
+        r_rank, eligible = fair.order(st, eligible, capped, placeable)
+        if self.use_fused:
+            new_assign, debit, pod_inc = _admission_round_fused(
+                eligible, a, avail, used_now, self.sig_feas, self.sig_i8,
+                self.inv_alloc, self.node_static, self.fused_pars,
+                a["task_req"], r_rank, thr, scalar_mask, st.npods,
+                self.herd_mode, families)
+        else:
+            feas = feas0 if feas0 is not None else (
+                fits_matrix(init_req, avail, thr, scalar_mask)
+                & self.sig_feas)
+            score = score_matrix(init_req, avail, used_now, a["node_alloc"],
+                                 self.params, families)
+            new_assign, debit, pod_inc = _admission_round(
+                eligible, feas, score, init_req, a["task_req"], avail,
+                r_rank, thr, scalar_mask, st.npods, a["node_max_pods"],
+                self.per_node_cap, self.herd_mode)
+        got = fair.record(st, new_assign, use_future)
+        if use_future:
+            st.pipe = st.pipe + debit
+        else:
+            st.idle = st.idle - debit
+            st.npods = st.npods + pod_inc
+        return got
+
+
 def solve_allocate(arrays: Dict[str, object],
                    score_params: Dict[str, object],
                    max_rounds: int = 64,
@@ -775,6 +894,10 @@ def solve_allocate(arrays: Dict[str, object],
     modes (``herd_mode`` pack/spread, ``per_node_cap`` 0); "on" forces it
     (CUDA tensors only; other herd modes stay dense); "off" runs the dense
     path.
+
+    On the card a round runs from a CUDA graph kept across solves where
+    ``ops.round_graph`` has one for the solve's shapes and flags (the
+    same kernels on the same data: the eager round's result, bit for bit).
     """
     if use_hdrf_order and use_drf_order and "hdrf_parent" not in arrays:
         raise ValueError("use_hdrf_order needs the hdrf arrays "
@@ -787,23 +910,14 @@ def solve_allocate(arrays: Dict[str, object],
 
     T = a["task_init_req"].shape[0]
     N = a["node_idle"].shape[0]
-    R = a["task_init_req"].shape[1]
-    thr = a["thresholds"]
-    scalar_mask = a["scalar_dim_mask"]
     tj = a["task_job"].long()
-    sig_feas = a["sig_masks"][a["task_sig"].long()] \
-        & a["node_valid"][None, :]                                  # [T,N]
     task_req = a["task_req"]
-    init_req = a["task_init_req"].contiguous()
 
     herd_ok = herd_mode in ("pack", "spread") and per_node_cap == 0
     if fused == "on" and dev.type != "cuda":
         raise ValueError("fused='on' needs CUDA tensors; use 'off' or "
                          "'auto' on the CPU")
     use_fused = fused != "off" and dev.type == "cuda" and herd_ok
-    if use_fused:
-        sig_i8, inv_alloc, fused_pars, node_static = fused_setup(
-            sig_feas, a["node_alloc"], params, R)
 
     total = torch.sum(
         a["node_alloc"] * a["node_valid"][:, None].to(torch.float32),
@@ -811,6 +925,35 @@ def solve_allocate(arrays: Dict[str, object],
     use_hdrf = use_drf_order and use_hdrf_order
     fair = _Fairness(a, total, use_queue_cap, use_drf_order, use_hdrf,
                      ease_unrequested=work_conserving)
+    body_kw = dict(use_fused=use_fused, herd_mode=herd_mode,
+                   score_families=tuple(score_families),
+                   per_node_cap=per_node_cap)
+    body = None
+
+    def eager_round(st: _State, variant):
+        nonlocal body
+        if body is None:
+            body = _RoundBody(a, params, fair, **body_kw)
+        return body.run(st, variant)
+
+    graphs = None
+    if round_graph.GRAPHS.serves(dev):
+        inputs = {f"a.{k}": v for k, v in a.items()}
+        inputs.update((f"p.{k}", v) for k, v in params.items())
+        if use_queue_cap:
+            inputs["deserved"] = fair.deserved
+
+        def build(inp):
+            """The round body over the graph's copies of ``inputs``."""
+            a_s = {k[2:]: v for k, v in inp.items() if k.startswith("a.")}
+            p_s = {k[2:]: v for k, v in inp.items() if k.startswith("p.")}
+            fair_s = _Fairness(a_s, None, use_queue_cap, use_drf_order,
+                               use_hdrf, deserved=inp.get("deserved"))
+            return _RoundBody(a_s, p_s, fair_s, **body_kw)
+
+        graphs = round_graph.SolveGraphs(
+            dev, (use_hdrf, use_drf_order, use_queue_cap)
+            + tuple(sorted(body_kw.items())), inputs, build)
 
     def phase_rounds(st: _State, use_future: bool, capped: bool = True,
                      gate=None) -> None:
@@ -825,54 +968,17 @@ def solve_allocate(arrays: Dict[str, object],
             any_eligible = any_eligible & gate
         changed = host_flag(any_eligible, "phase")
         phase = "future" if use_future else "idle"
+        variant = (use_future, capped)
         while changed and st.rounds < max_rounds:
             with tracing.traced("vc.round", round=st.rounds, phase=phase,
-                                capped=int(capped), T=T, N=N):
-                avail = (st.idle + a["node_extra_future"] - st.pipe) \
-                    if use_future else st.idle
-                eligible = (a["task_valid"] & (st.assigned < 0)
-                            & ~st.excluded[tj])
-                used_now = a["node_used"] + (a["node_idle"] - st.idle)
-                feas0 = placeable = None
-                if use_hdrf:
-                    # placeability prefilter: the dense path reuses this
-                    # round's feasibility matrix; the fused path pays one
-                    # extra kernel pass
-                    if use_fused:
-                        placeable = hdrf_placeable(
-                            init_req, avail, used_now, inv_alloc, node_static,
-                            eligible, st.npods < a["node_max_pods"], sig_i8,
-                            fused_pars, score_families)
-                    else:
-                        feas0 = fits_matrix(init_req, avail, thr,
-                                            scalar_mask) & sig_feas
-                        placeable = torch.any(
-                            feas0 & (st.npods < a["node_max_pods"])[None, :],
-                            dim=1)
-                r_rank, eligible = fair.order(st, eligible, capped, placeable)
-                if use_fused:
-                    new_assign, debit, pod_inc = _admission_round_fused(
-                        eligible, a, avail, used_now, sig_feas, sig_i8,
-                        inv_alloc, node_static, fused_pars, task_req,
-                        r_rank, thr, scalar_mask, st.npods, herd_mode,
-                        score_families)
+                                capped=int(capped), T=T, N=N,
+                                graph="eager") as sp:
+                if graphs is None:
+                    got = eager_round(st, variant)
                 else:
-                    feas = feas0 if feas0 is not None else (
-                        fits_matrix(init_req, avail, thr, scalar_mask)
-                        & sig_feas)
-                    score = score_matrix(init_req, avail, used_now,
-                                         a["node_alloc"], params,
-                                         score_families)
-                    new_assign, debit, pod_inc = _admission_round(
-                        eligible, feas, score, init_req, task_req, avail,
-                        r_rank, thr, scalar_mask, st.npods,
-                        a["node_max_pods"], per_node_cap, herd_mode)
-                got = fair.record(st, new_assign, use_future)
-                if use_future:
-                    st.pipe = st.pipe + debit
-                else:
-                    st.idle = st.idle - debit
-                    st.npods = st.npods + pod_inc
+                    got, mode = graphs.round(
+                        variant, st, lambda: eager_round(st, variant))
+                    sp.set(graph=mode)
                 st.rounds += 1
                 changed = host_flag(torch.any(got), "round")
 
@@ -919,7 +1025,8 @@ def solve_allocate(arrays: Dict[str, object],
     try:
         fair.gang_fixpoint(st, run_phases, credit, max_gang_iters)
     finally:
-        fair.close()
+        if graphs is not None:
+            graphs.close(st)
     return SolveResult(
         assigned=st.assigned, kind=st.kind, job_ready=fair.job_ready(st),
         rounds=torch.tensor(st.rounds, dtype=torch.int32, device=dev),

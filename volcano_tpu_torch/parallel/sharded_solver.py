@@ -40,6 +40,7 @@ import torch
 from ..metrics import tracing
 from ..ops.convert import to_torch_arrays, to_torch_params
 from ..ops.fused_choice import NEG, fused_choice, fused_setup
+from ..ops.hdrf import RankCapGraph
 from ..ops.solver import (
     SolveResult, _admit_prefix, _Fairness, _herd_mean, _herd_slots,
     _herd_target, _segment_sum, _State, _unpack, fits_matrix, le_fits,
@@ -121,6 +122,11 @@ def _solve(reps: Sequence[Dict[str, torch.Tensor]],
         total = torch.sum(valid_alloc[0] if D1 else _mesh.all_gather_tiled(
             valid_alloc, dev0), dim=0)
     fair = _Fairness(a, total, use_queue_cap, use_drf_order, use_hdrf_order)
+    if use_hdrf_order and dev0.type == "cuda":
+        # the hdrf rank and cap replayed from one graph for the rest of
+        # the solve (ops.hdrf.RankCapGraph; closed by fair.close())
+        fair.prepare()
+        fair.hdrf_rank_cap = RankCapGraph(fair.hdrf_rank_cap)
 
     def used_now(s, idle):
         return s.nd["node_used"] + (s.nd["node_idle"] - idle)
